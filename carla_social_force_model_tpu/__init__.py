@@ -1,4 +1,4 @@
-"""TPU-native Social Force Model framework.
+"""JAX Social Force Model crowd-simulation framework.
 
 A brand-new JAX/XLA/Pallas pedestrian crowd-simulation framework with the
 capabilities of felixlutz/carla-social-force-model (see SURVEY.md for the

@@ -234,7 +234,7 @@ def make_teacher_forced_loss_fn(state0: PedState, scene: Scene,
             f"{observed.pos.shape[0]} frames, num_steps={num_steps}")
     if window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    # planar observation streams for the scan (TPU layout rule: no (N, 2))
+    # planar observation streams for the scan (x/y planes, no (N, 2))
     obs = dict(
         px=observed.pos[..., 0], py=observed.pos[..., 1],
         vx=observed.vel[..., 0], vy=observed.vel[..., 1],

@@ -18,7 +18,7 @@ log = logging.getLogger(__name__)
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        description="TPU-native Social Force Model simulation")
+        description="Social Force Model crowd simulation (JAX)")
     p.add_argument("--scenario-config", type=str, required=True,
                    help="scenario configuration file (reference TOML surface)")
     p.add_argument("--sfm-config", type=str, default=None,
@@ -36,41 +36,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--carla-port", default=2000, type=int)
     p.add_argument("--strict-parity", action="store_true",
                    help="reproduce reference-inert config keys and quirks")
-    p.add_argument("--pallas", action="store_true", default=None,
-                   help="use the fused Pallas N x N force kernel (TPU)")
+    p.add_argument("--pallas", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="fused Pallas force kernels (default: on where they "
+                        "are compiled, i.e. on the GPU; --no-pallas forces "
+                        "the jnp path)")
     p.add_argument("--cutoff", type=float, default=None, metavar="METERS",
-                   help="locality-sorted interaction cutoff (see BENCH.md)")
+                   help="locality-sorted interaction cutoff (kernel path; "
+                        "see BENCH.md)")
     p.add_argument("--spatial-order", choices=("morton", "hilbert"),
                    default=None,
                    help="space-filling curve for the cutoff sort")
-    p.add_argument("--comm", choices=("gather", "ring", "ring_kernel"),
-                   default=None,
+    p.add_argument("--comm", choices=("gather", "ring"), default=None,
                    help="column-state communication under agent-sharding")
-    p.add_argument("--exact-div", action="store_true", default=None,
-                   help="exact division in the Pallas in-kernel atan2 "
-                        "(default: Newton-refined approximate reciprocal)")
-    p.add_argument("--vmem-mb", type=int, default=None,
-                   help="Mosaic scoped-VMEM limit for the Pallas kernels")
-    p.add_argument("--env-compact", action="store_true", default=None,
-                   help="compacted env-kernel grid (best for sparse street-"
-                        "network borders, see BENCH.md)")
     p.add_argument("--env-analytic", action="store_true", default=None,
                    help="analytic border geometry: closest point ON Douglas-"
                         "Peucker-simplified segments instead of the "
-                        "reference's 0.1 m sampled argmin (~10x less border "
-                        "work; deviation bounded by the sampling "
-                        "quantization, see PARITY.md/BENCH.md)")
-    p.add_argument("--pallas-compact", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="compacted pairwise-kernel grid (takes effect with "
-                        "--cutoff; default on -- auto-engages above ~33k "
-                        "agents, making the cutoff kernel O(N) at fixed "
-                        "density, see BENCH.md)")
-    p.add_argument("--symmetric", action=argparse.BooleanOptionalAction,
-                   default=None,
-                   help="Newton's-third-law pairwise launch: each unordered "
-                        "pair computed once (default on; half the pairwise "
-                        "work, f32-summation-order equal; single-device)")
+                        "reference's 0.1 m sampled argmin (kernel path; "
+                        "deviation bounded by the sampling quantization, "
+                        "see PARITY.md/BENCH.md)")
     p.add_argument("--stream", action="store_true",
                    help="stream records to CSV in chunks (bounded memory "
                         "for long rollouts; implies --csv)")
@@ -125,6 +109,8 @@ def main(argv=None) -> int:
         # silently beats the env var — re-apply before any backend inits
         import jax
         jax.config.update("jax_platforms", platform)
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     sfm_config = args.sfm_config if args.sfm_config else dict(DEFAULT_SFM_CONFIG)
 
@@ -140,13 +126,8 @@ def main(argv=None) -> int:
         engine={"use_pallas": args.pallas,
                 "interaction_cutoff": args.cutoff,
                 "axis_comm": args.comm,
-                "pallas_exact_div": args.exact_div,
-                "pallas_vmem_mb": args.vmem_mb,
                 "spatial_order": args.spatial_order,
-                "env_compact": args.env_compact,
-                "env_analytic": args.env_analytic,
-                "pallas_compact": args.pallas_compact,
-                "pallas_symmetric": args.symmetric})
+                "env_analytic": args.env_analytic})
 
     if args.checkpoint_dir:
         from ..utils.checkpoint import latest_checkpoint, load_state, run_segmented

@@ -112,7 +112,7 @@ def extract_ped_spawners(scenario: dict, route_provider=None) -> list[SpawnerSpe
 def extract_autopilot_specs(scenario: dict, driving_router=None) -> list:
     """Reactive ``[[vehicle.vehicle_spawner]]`` entries: ``auto_pilot = true``
     plus a headless route -> kinematic waypoint-follower specs (the
-    TPU-native stand-in for TrafficManager autopilot,
+    on-device stand-in for TrafficManager autopilot,
     vehicle_spawner.py:125-130; models/autopilot.py).
 
     The route comes from an explicit ``waypoints`` polyline, or -- like the
@@ -414,31 +414,24 @@ def build_scenario(scenario_config, sfm_config, num_steps: int,
     dt = float(scenario.get("step_length", 0.05))
     walker = scenario.get("walker", {})
     # engine knobs (headless extension): scenario [engine] table, overridden
-    # by the caller's engine= dict (the CLI's --pallas/--cutoff/--comm)
+    # by the caller's engine= dict (the CLI's --pallas/--cutoff/--comm);
+    # use_pallas defaults to the backend's choice (ops/backend.py)
     eng = dict(scenario.get("engine", {}))
     eng.update({k: v for k, v in (engine or {}).items() if v is not None})
     cutoff = eng.get("interaction_cutoff")
-    if cutoff is not None and not eng.get("use_pallas", False):
-        log.warning("interaction_cutoff only takes effect on the fused "
-                    "Pallas kernel; pass --pallas / engine.use_pallas")
+    use_pallas = eng.get("use_pallas")
+    if use_pallas is None:
+        from ..ops.backend import kernels_available
+        use_pallas = kernels_available()
     cfg = StepConfig(
         dt=dt,
         waypoint_threshold=float(walker.get("waypoint_threshold", 2.0)),
         despawn_on_arrival=bool(walker.get("despawn_on_arrival", True)),
-        use_pallas=bool(eng.get("use_pallas", False)),
+        use_pallas=bool(use_pallas),
         interaction_cutoff=float(cutoff) if cutoff is not None else None,
         axis_comm=str(eng.get("axis_comm", "gather")),
-        pallas_exact_div=bool(eng.get("pallas_exact_div", False)),
-        pallas_vmem_mb=int(eng.get("pallas_vmem_mb", 32)),
         spatial_order=str(eng.get("spatial_order", "hilbert")),
-        env_compact=bool(eng.get("env_compact", False)),
         env_analytic=bool(eng.get("env_analytic", False)),
-        env_max_surv=int(eng.get("env_max_surv", 0)),
-        pallas_compact=bool(eng.get("pallas_compact", True)),
-        pallas_max_surv=int(eng.get("pallas_max_surv", 0)),
-        pallas_symmetric=bool(eng.get("pallas_symmetric", True)),
-        env_ped_tile=int(eng.get("env_ped_tile", 512)),
-        env_point_tile=int(eng.get("env_point_tile", 512)),
     )
 
     obstacles_cfg = scenario.get("obstacles")

@@ -13,6 +13,7 @@ from ..models.routes import RouteBuffer
 from ..models.spawn import SpawnSchedule
 from ..models.state import PedState
 from ..models.stepper import Scene, StepConfig
+from ..ops.backend import kernels_available
 
 
 def synthetic_crowd(n: int, extent: float = 100.0, speed: float = 1.3,
@@ -131,7 +132,6 @@ def urban_bundle(n: int, seed: int = 0, use_pallas: bool | None = None,
     host-side between random far-apart sidewalk nodes (every route crosses
     roads); pedestrians round-robin over them with jittered spawn points.
     """
-    import jax
     from ..env.borders import build_border_set
     from ..models.autopilot import AutopilotSpec, build_autopilot_fleet
     from ..models.params import SfmParams
@@ -139,7 +139,7 @@ def urban_bundle(n: int, seed: int = 0, use_pallas: bool | None = None,
     from ..routing.planner import PedPathPlanner
 
     if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
+        use_pallas = kernels_available()
     rng = np.random.default_rng(seed)
 
     # --- nav graph ------------------------------------------------------
@@ -241,12 +241,8 @@ def urban_bundle(n: int, seed: int = 0, use_pallas: bool | None = None,
     scene = Scene(spawn=schedule, borders=borders, autopilot=fleet)
     params = SfmParams(enable_acceleration=True, enable_pedestrian=True,
                        enable_border=True, enable_dynamic_obstacle=True)
-    # env_compact: the street-network border cloud is sparse relative to
-    # the routed crowds' tile footprints -- the compacted env-kernel grid
-    # is +53% end-to-end here (BENCH.md config #4)
     cfg = StepConfig(dt=0.05, waypoint_threshold=2.0,
-                     despawn_on_arrival=True, use_pallas=use_pallas,
-                     env_compact=True)
+                     despawn_on_arrival=True, use_pallas=use_pallas)
     return scene, params, cfg, PedState.empty(n)
 
 
@@ -280,16 +276,15 @@ def benchmark_bundle(n: int, extent: float | None = None, seed: int = 0,
     * ``with_obstacles``: config #3 -- + static (parked-car grid) and
       dynamic (moving vehicles) obstacle forces.
 
-    ``use_pallas=None`` auto-enables the fused kernel on TPU backends.
+    ``use_pallas=None`` follows ops/backend.kernels_available (the fused
+    kernels on the GPU, jnp elsewhere).
     """
-    import jax
-    import jax.numpy as jnp
     from ..models.params import SfmParams
     if extent is None:
         # keep density roughly constant (~1 ped / 4 m^2)
         extent = max(25.0, float(np.sqrt(n) * 1.0))
     if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
+        use_pallas = kernels_available()
     schedule = synthetic_crowd(n, extent=extent, seed=seed)
 
     borders = synthetic_borders(extent) if with_borders else None

@@ -1,4 +1,4 @@
-"""CARLA-attached main loop (the reference's simulation_loop with a TPU core).
+"""CARLA-attached main loop (the reference's simulation_loop with a JAX core).
 
 Wires the pieces for interactive use against a live CARLA server:
 map-geometry extraction (cached), nav-graph routing, vehicle management

@@ -2,7 +2,7 @@
 
 The reference stores borders/obstacle outlines as ragged Python lists of
 numpy arrays and loops over pedestrians (forces.py:145-155, :217-229).  The
-TPU-native layout packs *all* points of all segments (a segment = one border
+device layout packs *all* points of all segments (a segment = one border
 or one obstacle outline) into a dense ``(num_chunks, chunk_size, 2)`` array
 with a per-chunk segment id.  Ragged segment lengths are handled by splitting
 each segment into fixed-size chunks and padding the tail; a segmented min
@@ -26,7 +26,8 @@ PAD_COORD = 1.0e8
 
 @pytree_dataclass
 class ChunkedPointSet:
-    """A set of ``num_segments`` point-sampled outlines, chunked for TPU.
+    """A set of ``num_segments`` point-sampled outlines, chunked for the
+    vectorized closest-point passes.
 
     ``centers``/``filter_radius`` drive the reference's coarse relevance
     filters: for sidewalk borders the section center/length pair
@@ -343,7 +344,7 @@ def analytic_split(pset: ChunkedPointSet | None, tol: float = 1e-3,
     gset = None
     if geom:
         m = max(1, max(v.shape[0] - 1 for _, v in geom))
-        m = -(-m // 8) * 8                     # sublane-tileable rows
+        m = -(-m // 8) * 8                     # padded to a multiple of 8
         s_g = len(geom)
         ax = np.full((s_g, m), PAD_COORD, np.float32)
         ay = np.full((s_g, m), PAD_COORD, np.float32)

@@ -4,7 +4,7 @@ The reference's autopilot vehicles are driven by CARLA's TrafficManager (or a
 BehaviorAgent) with per-vehicle knobs: percentage speed difference below the
 limit, ignore-walkers percentage, ignore-lights percentage
 (/root/reference/vehicle_spawner.py:125-138).  Headless there is no UE4
-traffic stack, so this module provides the TPU-native equivalent: a
+traffic stack, so this module provides the on-device equivalent: a
 branchless, fully vectorized kinematic controller that runs *inside* the
 jitted ``lax.scan`` as part of the rollout carry --
 
@@ -366,7 +366,7 @@ def autopilot_step(fleet: AutopilotFleet, st: AutopilotState,
     """Advance the fleet one tick (branchless, (V,) and (V,N) vector math).
 
     ``ped_pos``/``ped_vel``: (N, 2) arrays or (x, y) plane tuples -- the
-    (V, N)-shaped hazard work is planar (TPU size-2-minor layout rule).
+    (V, N)-shaped hazard work is planar (x/y planes, models/state.py).
 
     Runs *before* the pedestrian core each tick, matching the reference's
     order (vehicles move inside ``world.tick()`` and are then read back as

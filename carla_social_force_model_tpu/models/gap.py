@@ -27,7 +27,7 @@ def gap_ready(pos, goal, crossing_speed, margin,
     Args:
       pos, goal: crossing segment endpoints (current loc -> waypoint) as
         (N, 2) arrays or (x, y) plane tuples -- all (N, V)-shaped work is
-        planar (TPU size-2-minor layout rule, models/state.py).
+        planar (x/y planes, models/state.py).
       crossing_speed, margin: (N,).
       veh_center, veh_vel: (V, 2); veh_extent: (V, 2) bbox half extents;
       veh_active: (V,) bool.

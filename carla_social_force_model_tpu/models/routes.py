@@ -18,7 +18,7 @@ from ..utils.pytree import pytree_dataclass
 @pytree_dataclass
 class RouteBuffer:
     # coordinates as separate x/y planes (size-2 minor dims pad 2 -> 128
-    # lanes on TPU; see models/state.py)
+    # planes; see models/state.py)
     wp_x: jnp.ndarray       # (N, W) f32
     wp_y: jnp.ndarray       # (N, W) f32
     crossing: jnp.ndarray   # (N, W) bool: road crossed when heading to wp

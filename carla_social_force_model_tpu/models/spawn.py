@@ -85,7 +85,7 @@ class SpawnSchedule:
     """Per-slot spawn data; ``step == -1`` means the slot is never used.
 
     Coordinates are x/y planes, not ``(N, 2)`` (see models/state.py on the
-    TPU size-2-minor layout rule); the ``pos`` / ``vel`` /
+    planar layout, models/state.py); the ``pos`` / ``vel`` /
     ``first_waypoint`` properties assemble host-side views.
     """
 

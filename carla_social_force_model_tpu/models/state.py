@@ -1,8 +1,8 @@
-"""Fixed-capacity SoA pedestrian state (the TPU-native PedState).
+"""Fixed-capacity SoA pedestrian state (the on-device PedState).
 
 The reference keeps a dynamically grown structured numpy array with a Python
 object column for the FSM (/root/reference/pedestrian_state.py:17-19) and
-appends/deletes rows on spawn/despawn.  On TPU everything must be static
+appends/deletes rows on spawn/despawn.  Under jit everything must be static
 shape, so the population lives in ``(capacity,)`` arrays with ``alive`` /
 ``spawned`` masks: spawn = write-at-slot, despawn = clear mask.  All force and
 FSM kernels respect the masks, which makes a masked fixed-capacity rollout
@@ -10,9 +10,8 @@ bit-equivalent to the reference's grow/shrink semantics.
 
 Positions/velocities are 2-D; the reference's math is already 2-D (z is only
 carried to/from CARLA, SURVEY.md section 7 layer 1).  Coordinates are stored
-as SEPARATE x/y planes, never ``(N, 2)``: a size-2 minor dimension pads
-2 -> 128 lanes on TPU (~64x the memory traffic for every touch -- measured
-as ~2/3 of the whole ensemble step before this layout).  The ``pos`` /
+as SEPARATE x/y planes, never ``(N, 2)``: every kernel and jnp pass reads
+contiguous per-coordinate planes with N minor.  The ``pos`` /
 ``vel`` / ``waypoint`` properties assemble ``(N, 2)`` views for host-side
 consumers (CSV, bridge, tests); on-device math uses the planes.
 """

@@ -127,98 +127,45 @@ class StepConfig:
     waypoint_threshold: float = static_field(default=2.0)
     despawn_on_arrival: bool = static_field(default=True)
     row_block: int = static_field(default=1024)
-    # fused Pallas N x N kernel (TPU); force params ride as scalar-prefetch
-    # values so parameter sweeps (vmap over params) keep the fused kernel
+    # fused pair-force and environment kernels (Pallas through Triton,
+    # ops/pallas_forces.py and ops/pallas_env.py; the environment kernel
+    # covers the terms whose section-major layouts prepare_scene built);
+    # compiled for the GPU only -- ops/backend.check_kernels raises
+    # elsewhere unless pallas_interpret asks for the Pallas interpreter
+    # (CPU tests).  Force params ride as a kernel input, so vmapped
+    # parameter sweeps keep it
     use_pallas: bool = static_field(default=False)
-    # tile defaults from the v5e sweep (tools/tpu_tune.py): smallish tiles
-    # beat large ones -- pairwise temporaries stay VMEM-resident and pipeline
-    pallas_row_tile: int = static_field(default=192)
-    pallas_col_tile: int = static_field(default=512)
+    # pair-kernel tiles (powers of two): rows per program, columns per
+    # in-kernel loop step; chosen on the H100 (PERF.md)
+    pallas_row_tile: int = static_field(default=32)
+    pallas_col_tile: int = static_field(default=32)
     pallas_interpret: bool = static_field(default=False)  # CPU testing
-    # pairwise-kernel numerics/VMEM knobs (formerly PF_DIV / PF_VMEM_MB env
-    # vars -- trace-time globals that silently changed compiled numerics):
-    # exact division in the in-kernel atan2 instead of the Newton-refined
-    # approximate reciprocal (~1e-7 relative either way; div is a hair
-    # slower), and the Mosaic scoped-VMEM limit in MB (32 beats the 16 MB
-    # default for the production tiles)
-    pallas_exact_div: bool = static_field(default=False)
-    pallas_vmem_mb: int = static_field(default=32)
     # column-state communication under agent-sharding: "gather" or "ring"
     axis_comm: str = static_field(default="gather")
-    # fused environment-force kernels (ops/pallas_env.py) for border/
-    # obstacle forces when use_pallas is on and the scene carries the
-    # segment-major layouts (prepare_scene); off -> jnp closest-point path
-    use_pallas_env: bool = static_field(default=True)
-    # env-kernel tiles: peds per lane tile / target points per segment tile.
-    # v5e sweep (tools/tpu_tune.py env mode): 512x512 beats 512x1024 by
-    # ~6-9% on both the border and obstacle configs; >=1024-ped tiles lose
-    # ~12% (same smallish-tile pattern as the pairwise kernel)
-    env_ped_tile: int = static_field(default=512)
-    env_point_tile: int = static_field(default=512)
-    # compacted env-kernel grid: build the (ped-tile, point-tile) hit
-    # matrix in jnp each step and launch only surviving pairs through
-    # scalar-prefetch surv-indexed block maps (ops/pallas_env.py).  Exact:
-    # a lax.cond falls back to the dense grid when any ped tile exceeds
-    # env_max_surv survivors (0 = auto: ~n_point_tiles/3, min 8).
-    # OPT-IN: +53% on sparse street-network geometry (config #4 urban,
-    # BENCH.md) where each ped tile touches few point tiles, but the
-    # 8-segment tile granularity it needs WASTES compute on uniform-arena
-    # crowds whose surviving tiles are mostly-active anyway (-15% on
-    # configs #2/#3), so the default stays dense
-    env_compact: bool = static_field(default=False)
-    env_max_surv: int = static_field(default=0)
+    # env-kernel tiles (powers of two): pedestrians per program, sampled
+    # points per inner chunk; chosen on the H100 (PERF.md)
+    env_ped_tile: int = static_field(default=32)
+    env_point_tile: int = static_field(default=128)
     # analytic border geometry (env/pointsets.analytic_split): border-family
     # forces compute the closest point ON Douglas-Peucker-simplified line
     # segments of each section instead of argmin over the reference's
-    # 0.1 m point sampling -- ~kk/M times less work per (section, ped)
-    # pair (kk = points per section, typically 512; M <= 8 segments).
-    # Sections that do not simplify (tightly curved outlines) stay on the
+    # 0.1 m point sampling.  Sections that do not simplify stay on the
     # sampled path and their term is summed, so enabling this changes only
     # the sampling-quantization error (the analytic distance is the true
-    # polyline distance; the sampled argmin overestimates it by up to
-    # sqrt(d^2 + 0.05^2) - d).  OPT-IN because the sampled argmin IS the
+    # polyline distance).  OPT-IN because the sampled argmin IS the
     # reference's semantic (PARITY.md); the quantization study lives in
-    # BENCH.md.  Requires prepare_scene (populates scene.borders_geom).
+    # BENCH.md.  Both paths (kernel and jnp); requires prepare_scene.
     env_analytic: bool = static_field(default=False)
-    # optional interaction cutoff [m] for the Pallas path: agents are
-    # Morton-sorted and tile pairs beyond the cutoff are skipped.  None =
-    # all pairs (reference semantics).  A cutoff >= 110*gamma*(2*lambda*
-    # v_max+1) is f32-exact; smaller values truncate the (exponentially
-    # decaying) interaction range.  Composes with agent-sharding: each
-    # device sorts its local shard and the per-pair cutoff keeps the sum
-    # exact; pair it with axis_comm="ring" for O(N/devices) peak memory.
+    # optional interaction cutoff [m] for the kernel path: agents are
+    # locality-sorted and column tiles beyond the cutoff are skipped.
+    # None = all pairs (reference semantics).  A cutoff >= 110*gamma*
+    # (2*lambda*v_max+1) is f32-exact; smaller values truncate the
+    # (exponentially decaying) interaction range.  Composes with
+    # agent-sharding: each device sorts its local shard and the per-pair
+    # cutoff keeps the sum exact.  Requires use_pallas.
     interaction_cutoff: float | None = static_field(default=None)
-    # compacted pairwise-kernel grid (takes effect with interaction_cutoff):
-    # build the (row-tile, col-tile) bbox hit matrix in jnp each step and
-    # launch only surviving column tiles per row tile through a
-    # scalar-prefetch survivor table (ops/pallas_forces.py), with a
-    # lax.cond dense-grid fallback on overflow (pallas_max_surv survivors
-    # per row tile, 0 = auto: 32) -- always exact, bitwise equal to the
-    # dense grid.  DEFAULT ON: with the auto bound it engages only above
-    # 64 column tiles (~33k agents at the default 512 col tile, where the
-    # dense grid is mostly dead iterations) and makes the cutoff kernel
-    # O(N) at fixed density -- 5.4-5.7M agent-steps/s flat from N=50k to
-    # N=1M vs the dense grid's 4.4M/3.7M/0.8M (BENCH.md); an explicit
-    # pallas_max_surv engages whenever n_col_tiles exceeds it.  Ignored on
-    # the ring comm paths (their per-block grid is already shard-sized).
-    pallas_compact: bool = static_field(default=True)
-    pallas_max_surv: int = static_field(default=0)
-    # Newton's-third-law pairwise launch: the Moussaid pair force is exactly
-    # antisymmetric, so each unordered pair is computed once and accumulated
-    # +f to its row / -f to its column -- half the pairwise EUP+ALU work
-    # (ops/pallas_forces._pair_kernel_sym).  Equal to the non-symmetric
-    # kernel up to f32 summation order.  Applies on single-device rollouts
-    # and, under agent-sharding, to axis_comm="ring" (the half-ring
-    # schedule: floor(D/2) compute rotations with the mirrored force sums
-    # riding the ring home -- ~2x less pairwise work per device); ignored
-    # under gather comm (the mirrored row lives on another device with no
-    # channel back).  Composes with the cutoff and the compacted grid.
-    pallas_symmetric: bool = static_field(default=True)
-    # space-filling curve for the cutoff sort: "hilbert" (default; no
-    # Z-jumps, so tile bounding boxes are tighter -> more skipped tile
-    # pairs: -13%/-18%/-18% kernel time at N=10k/50k/100k with the 30 m
-    # cutoff, BENCH.md) or "morton" (Z-order).  Same sort cost, identical
-    # semantics up to f32 summation order.
+    # space-filling curve for the cutoff sort: "hilbert" (no Z-jumps, so
+    # tighter tile bounding boxes and more skipped tiles) or "morton"
     spatial_order: str = static_field(default="hilbert")
 
 
@@ -226,8 +173,8 @@ class StepRecord(NamedTuple):
     """Per-step snapshot (the reference's ``all_states`` recording).
 
     The public record type: ``pos``/``vel`` are (T, N, 2).  In-scan the
-    stepper records :class:`RecordXY` planes (a (T, N, 2) scan output would
-    pay the TPU size-2-minor lane padding on every step's write) and
+    stepper records :class:`RecordXY` planes (the planar layout of
+    models/state.py) and
     :func:`rollout` assembles this once after the scan.
     """
 
@@ -261,7 +208,7 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     forces.py:28-32, as data instead of log lines).
 
     Every term is an ``(fx, fy)`` plane pair -- coordinate planes, never
-    ``(N, 2)`` (the TPU size-2-minor layout rule, models/state.py).
+    ``(N, 2)`` (the planar layout, models/state.py).
 
     ``axis_name``: when the pedestrian slots are sharded over a mesh axis
     (shard_map agent-sharding), the N x N force gathers its column state over
@@ -269,17 +216,24 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     """
     from ..ops.vecmath import split_xy
 
+    if cfg.use_pallas:
+        from ..ops.backend import check_kernels
+        check_kernels(cfg.use_pallas, cfg.pallas_interpret)
+    elif cfg.interaction_cutoff is not None:
+        raise ValueError(
+            "interaction_cutoff runs on the fused kernels only: set "
+            "use_pallas=True (GPU, or pallas_interpret=True)")
+
     fused_env: dict = {}
-    if cfg.use_pallas and cfg.use_pallas_env:
+    if cfg.use_pallas:
         from ..ops.pallas_env import fused_environment_terms
         fused_env = fused_environment_terms(
             state, scene, params, veh_snap, ped_tile=cfg.env_ped_tile,
             point_tile=cfg.env_point_tile, interpret=cfg.pallas_interpret,
-            spatial_order=cfg.spatial_order, compact=cfg.env_compact,
-            max_surv=cfg.env_max_surv, analytic=cfg.env_analytic)
+            spatial_order=cfg.spatial_order, analytic=cfg.env_analytic)
 
-    # (N, 2) assembly for the jnp force paths (parity oracle / CPU); the
-    # production Pallas paths consume the planes directly
+    # (N, 2) assembly for the jnp force paths; the kernel paths consume
+    # the planes directly
     pos2 = vel2 = None
 
     def _pos2():
@@ -294,6 +248,40 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
             vel2 = state.vel
         return vel2
 
+    def analytic_wall_force(a, inv_b, use_radius):
+        """jnp path of the analytic border tier: Douglas-Peucker segments
+        plus the sampled remainder (mirrors ops/pallas_env's jobs)."""
+        fx, fy = forces.section_wall_force(
+            state.pos_x, state.pos_y, state.mode, state.radius, state.alive,
+            scene.borders_geom, a, inv_b, use_ped_radius=use_radius)
+        if scene.borders_seg_rest is not None:
+            rx, ry = forces.section_wall_force(
+                state.pos_x, state.pos_y, state.mode, state.radius,
+                state.alive, scene.borders_seg_rest, a, inv_b,
+                use_ped_radius=use_radius)
+            fx, fy = fx + rx, fy + ry
+        return fx, fy
+
+    analytic = cfg.env_analytic and scene.borders_geom is not None
+
+    def pair_kernel(law, p, desired=None):
+        """One pair-force family through the fused kernel (sorted cutoff
+        launch when interaction_cutoff is set)."""
+        from ..ops.pallas_forces import (pedestrian_force_pallas,
+                                         pedestrian_force_pallas_sorted)
+        args = ((state.pos_x, state.pos_y), (state.vel_x, state.vel_y),
+                state.radius, state.alive, p)
+        kw = dict(law=law, desired=desired, axis_name=axis_name,
+                  axis_comm=cfg.axis_comm, row_tile=cfg.pallas_row_tile,
+                  col_tile=cfg.pallas_col_tile,
+                  interpret=cfg.pallas_interpret, planar_out=True,
+                  use_ped_radius=params.use_ped_radius)
+        if cfg.interaction_cutoff is not None:
+            return pedestrian_force_pallas_sorted(
+                *args, cutoff=cfg.interaction_cutoff,
+                spatial_order=cfg.spatial_order, **kw)
+        return pedestrian_force_pallas(*args, **kw)
+
     terms: dict = {}
     if params.enable_acceleration:
         terms["acceleration_force"] = forces.acceleration_force_xy(
@@ -302,49 +290,21 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
             params.acceleration)
     if params.enable_pedestrian:
         if cfg.use_pallas:
-            from ..ops.pallas_forces import (pedestrian_force_pallas,
-                                             pedestrian_force_pallas_sorted)
-            tiles = dict(row_tile=cfg.pallas_row_tile,
-                         col_tile=cfg.pallas_col_tile,
-                         interpret=cfg.pallas_interpret, planar_out=True,
-                         exact_div=cfg.pallas_exact_div,
-                         vmem_mb=cfg.pallas_vmem_mb)
-            # Newton's-third-law launches: single-device, or the half-ring
-            # schedule under ring column comm (ops/pallas_forces.py); under
-            # gather comm the mirrored row lives on another device with no
-            # channel back, so the flag is ignored there
-            sym = cfg.pallas_symmetric and (
-                axis_name is None or cfg.axis_comm == "ring")
-            if cfg.interaction_cutoff is not None:
-                # composes with agent-sharding: per-device Morton sort +
-                # ring/gather column comm with rotated tile bboxes
-                terms["pedestrian_force"] = pedestrian_force_pallas_sorted(
-                    (state.pos_x, state.pos_y), (state.vel_x, state.vel_y),
-                    state.radius, state.alive,
-                    params.pedestrian, cutoff=cfg.interaction_cutoff,
-                    use_ped_radius=params.use_ped_radius,
-                    axis_name=axis_name,
-                    axis_comm=cfg.axis_comm if axis_name else "gather",
-                    spatial_order=cfg.spatial_order,
-                    compact=cfg.pallas_compact,
-                    max_surv=cfg.pallas_max_surv, symmetric=sym, **tiles)
-            else:
-                terms["pedestrian_force"] = pedestrian_force_pallas(
-                    (state.pos_x, state.pos_y), (state.vel_x, state.vel_y),
-                    state.radius, state.alive,
-                    params.pedestrian, use_ped_radius=params.use_ped_radius,
-                    axis_name=axis_name, axis_comm=cfg.axis_comm,
-                    symmetric=sym, **tiles)
+            terms["pedestrian_force"] = pair_kernel("moussaid",
+                                                    params.pedestrian)
         else:
             terms["pedestrian_force"] = split_xy(forces.pedestrian_force(
                 _pos2(), _vel2(), state.radius, state.alive,
                 params.pedestrian, use_ped_radius=params.use_ped_radius,
                 row_block=cfg.row_block, axis_name=axis_name,
-                axis_comm=("ring" if cfg.axis_comm == "ring_kernel"
-                           else cfg.axis_comm)))
+                axis_comm=cfg.axis_comm))
     if params.enable_border and scene.borders is not None:
         if "border_force" in fused_env:
             terms["border_force"] = fused_env["border_force"]
+        elif analytic:
+            terms["border_force"] = analytic_wall_force(
+                params.border.a, 1.0 / params.border.b,
+                params.use_ped_radius)
         else:
             terms["border_force"] = split_xy(forces.border_force(
                 _pos2(), state.mode, state.radius, state.alive,
@@ -364,66 +324,25 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
                 use_ped_radius=params.use_ped_radius))
     if params.enable_powerlaw:
         if cfg.use_pallas:
-            from ..ops.pallas_forces import (pedestrian_force_pallas,
-                                             pedestrian_force_pallas_sorted)
-            pw_kw = dict(
-                law="powerlaw", axis_name=axis_name,
-                symmetric=(cfg.pallas_symmetric
-                           and (axis_name is None or cfg.axis_comm == "ring")),
-                row_tile=cfg.pallas_row_tile, col_tile=cfg.pallas_col_tile,
-                interpret=cfg.pallas_interpret, planar_out=True,
-                exact_div=cfg.pallas_exact_div, vmem_mb=cfg.pallas_vmem_mb)
-            pw_args = ((state.pos_x, state.pos_y),
-                       (state.vel_x, state.vel_y),
-                       state.radius, state.alive, params.powerlaw)
-            if cfg.interaction_cutoff is not None:
-                terms["powerlaw_force"] = pedestrian_force_pallas_sorted(
-                    *pw_args, cutoff=cfg.interaction_cutoff,
-                    axis_comm=cfg.axis_comm if axis_name else "gather",
-                    spatial_order=cfg.spatial_order,
-                    compact=cfg.pallas_compact,
-                    max_surv=cfg.pallas_max_surv, **pw_kw)
-            else:
-                terms["powerlaw_force"] = pedestrian_force_pallas(
-                    *pw_args, axis_comm=cfg.axis_comm, **pw_kw)
+            terms["powerlaw_force"] = pair_kernel("powerlaw",
+                                                  params.powerlaw)
         else:
             terms["powerlaw_force"] = split_xy(forces.powerlaw_force(
                 _pos2(), _vel2(), state.radius, state.alive, params.powerlaw,
                 row_block=cfg.row_block, axis_name=axis_name,
-                axis_comm=("ring" if cfg.axis_comm == "ring_kernel"
-                           else cfg.axis_comm)))
+                axis_comm=cfg.axis_comm))
     if params.enable_ped_repulsive:
         ex, ey, _ = vecmath.normalize_xy(state.wp_x - state.pos_x,
                                          state.wp_y - state.pos_y)
         if cfg.use_pallas:
-            from ..ops.pallas_forces import (pedestrian_force_pallas,
-                                             pedestrian_force_pallas_sorted)
-            hb_kw = dict(
-                law="helbing", desired=(ex, ey), axis_name=axis_name,
-                row_tile=cfg.pallas_row_tile, col_tile=cfg.pallas_col_tile,
-                interpret=cfg.pallas_interpret, planar_out=True,
-                exact_div=cfg.pallas_exact_div, vmem_mb=cfg.pallas_vmem_mb)
-            hb_args = ((state.pos_x, state.pos_y),
-                       (state.vel_x, state.vel_y),
-                       state.radius, state.alive, params.ped_repulsive)
-            if cfg.interaction_cutoff is not None:
-                terms["ped_repulsive_force"] = pedestrian_force_pallas_sorted(
-                    *hb_args, cutoff=cfg.interaction_cutoff,
-                    axis_comm=cfg.axis_comm if axis_name else "gather",
-                    spatial_order=cfg.spatial_order,
-                    compact=cfg.pallas_compact,
-                    max_surv=cfg.pallas_max_surv, **hb_kw)
-            else:
-                terms["ped_repulsive_force"] = pedestrian_force_pallas(
-                    *hb_args, axis_comm=cfg.axis_comm, **hb_kw)
+            terms["ped_repulsive_force"] = pair_kernel(
+                "helbing", params.ped_repulsive, desired=(ex, ey))
         else:
             terms["ped_repulsive_force"] = split_xy(
                 forces.ped_repulsive_force(
                     _pos2(), _vel2(), vecmath.stack_xy(ex, ey), state.alive,
                     params.ped_repulsive, row_block=cfg.row_block,
-                    axis_name=axis_name,
-                    axis_comm=("ring" if cfg.axis_comm == "ring_kernel"
-                               else cfg.axis_comm)))
+                    axis_name=axis_name, axis_comm=cfg.axis_comm))
     if params.enable_group and scene.groups is not None:
         from .groups import group_force
         gex, gey, _ = vecmath.normalize_xy(state.wp_x - state.pos_x,
@@ -434,6 +353,10 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     if params.enable_space_repulsive and scene.borders is not None:
         if "space_repulsive_force" in fused_env:
             terms["space_repulsive_force"] = fused_env["space_repulsive_force"]
+        elif analytic:
+            sp = params.space_repulsive
+            terms["space_repulsive_force"] = analytic_wall_force(
+                sp.u0 / sp.r, 1.0 / sp.r, False)
         else:
             terms["space_repulsive_force"] = split_xy(
                 forces.space_repulsive_force(
@@ -452,8 +375,7 @@ def force_terms(state: PedState, scene: Scene, params: SfmParams,
     # per-agent pair-interaction heterogeneity (SpawnSchedule.pair_scale /
     # law_id, beyond-reference): F_i = s_i * sum_j g_ij is exact as a
     # row-wise post-scale of the summed term, so both compose with every
-    # kernel path -- Newton's-third-law / half-ring launches compute the
-    # UNSCALED antisymmetric g and assemble the full per-row sum first.
+    # kernel path.
     # law_id row-masks each family to the agents that perceive the crowd
     # through it (mixed-model crowds; -1 = every enabled family); an agent
     # i's force always sums over ALL partners j through i's own law.
@@ -724,8 +646,8 @@ def rollout(state: PedState, scene: Scene, params: SfmParams, cfg: StepConfig,
         if axis_name is not None:
             # the braking hazard check needs the GLOBAL walker set; the
             # fleet state itself is replicated (identical deterministic
-            # update on every device).  Planes gather separately (no (N, 2)
-            # lane padding on the wire).
+            # update on every device).  Planes gather separately (the
+            # planar layout of models/state.py).
             g = lambda a: jax.lax.all_gather(a, axis_name, tiled=True)  # noqa: E731
             w_pos = (g(st.pos_x), g(st.pos_y))
             w_vel = (g(st.vel_x), g(st.vel_y))

@@ -1,6 +1,6 @@
 // Native A* router over the pedestrian navigation graph.
 //
-// TPU-native replacement for the runtime role networkx's astar_path plays in
+// Native replacement for the runtime role networkx's astar_path plays in
 // the reference (/root/reference/path_planner.py:113): routing is host-side
 // and latency-sensitive when thousands of random pedestrians request routes
 // (pedestrian_spawner.py:106-124), so the search core is C++ operating on the

@@ -20,7 +20,8 @@ import jax
 import jax.numpy as jnp
 
 from . import vecmath
-from .geometry import closest_point_per_segment, segment_filter_mask
+from .geometry import (_PAD_DIST2, closest_point_per_segment,
+                       section_closest_point, segment_filter_mask)
 from ..env.pointsets import ChunkedPointSet
 from ..models.params import (AccelerationParams, BorderParams, MoussaidParams,
                              PedRepulsiveParams, PowerLawParams,
@@ -66,8 +67,7 @@ def _moussaid_pair_force(diff, radius_sub, dv, p: MoussaidParams, pair_ok):
         for the angle *difference* of two vectors, and the dominant
         transcendental in the N x N hot loop.
     """
-    # planar (x, y) coordinate math throughout: a trailing size-2 axis in
-    # the minor dimension pads 2 -> 128 lanes on TPU and is ~10x slower
+    # planar (x, y) coordinate math throughout (models/state.py)
     dx = diff[..., 0]
     dy = diff[..., 1]
     dvx = dv[..., 0]
@@ -124,7 +124,7 @@ def pedestrian_force(pos, vel, radius, alive, p: MoussaidParams,
 
     Agent-sharding: under ``shard_map`` with rows sharded over mesh axis
     ``axis_name``, pass that name -- the column ("other agents") state is
-    communicated over ICI while each device computes only its row block of
+    communicated between devices while each device computes only its row block of
     the N x N interaction (SURVEY.md section 2, parallelism inventory).
     ``axis_comm``:
       * ``"gather"`` -- one all-gather of the column state per step (best
@@ -207,7 +207,7 @@ def _ring_force(axis_name, cols0, offset0, acc0, block_force):
 
 def _pedestrian_force_ring(pos, vel, radius, alive, p: MoussaidParams,
                            use_ped_radius: bool, axis_name: str):
-    """Ring-rotated column tiles over ICI (see :func:`pedestrian_force`
+    """Ring-rotated column tiles (see :func:`pedestrian_force`
     and :func:`_ring_force`)."""
     n_local = pos.shape[0]
     me = jax.lax.axis_index(axis_name)
@@ -276,7 +276,7 @@ def powerlaw_force(pos, vel, radius, alive, p: PowerLawParams,
     """Full N x N Karamouzas power-law interaction (model family beyond the
     reference's Moussaid force; see :class:`PowerLawParams`).  Structure
     mirrors :func:`pedestrian_force`: row-blocked ``lax.map``, and under
-    agent-sharding the column state all-gathers or ring-rotates over ICI.
+    agent-sharding the column state all-gathers or ring-rotates.
     Disc radii always participate (the law is defined on discs)."""
     n_local = pos.shape[0]
     dtype = pos.dtype
@@ -362,6 +362,35 @@ def border_force(pos, mode, radius, alive, borders: ChunkedPointSet,
     return jnp.where(crossing[:, None], 0.0, force)
 
 
+def section_wall_force(pos_x, pos_y, mode, radius, alive, sset, a, inv_b,
+                       use_ped_radius: bool = False):
+    """``a * exp(-d * inv_b)`` away from each in-filter section's closest
+    point, summed over sections, on a section-major set (SegmentPointSet
+    or the analytic SegmentGeomSet; ops/geometry.section_closest_point).
+
+    The border force (a, 1/b; reference forces.py:138-179) and the space
+    repulsive force (u0/r, 1/r) over the layouts the fused environment
+    kernel reads -- its plain-jnp twin, and the jnp path of the analytic
+    border tier (``StepConfig.env_analytic``).  Returns ``(fx, fy)``
+    planes; crossing modes are exempt (forces.py:176-177)."""
+    d2, cx, cy = section_closest_point(pos_x, pos_y, sset)
+    dx = pos_x[None, :] - cx                               # wall -> ped
+    dy = pos_y[None, :] - cy
+    r = jax.lax.rsqrt(jnp.where(d2 == 0.0, 1.0, d2))
+    d = d2 * r
+    if use_ped_radius:
+        d = d - radius[None, :]
+    fdx = sset.centers[:, 0, None] - pos_x[None, :]
+    fdy = sset.centers[:, 1, None] - pos_y[None, :]
+    fr = jnp.maximum(sset.filter_radius, 0.0)[:, None]
+    ok = (fdx * fdx + fdy * fdy < fr * fr) & (d2 < _PAD_DIST2) & alive[None, :]
+    mag = jnp.where(ok, (a * jnp.exp(-d * inv_b)) * r, 0.0)
+    crossing = (mode == modes.CROSSING_ROAD) | (mode == modes.ROAD_TO_SIDEWALK)
+    fx = jnp.where(crossing, 0.0, jnp.sum(mag * dx, axis=0))
+    fy = jnp.where(crossing, 0.0, jnp.sum(mag * dy, axis=0))
+    return fx, fy
+
+
 def _helbing_pair_force(pos_i, e_i, pos_c, vel_c, pair_ok,
                         p: PedRepulsiveParams):
     """Helbing-Molnar (1995) elliptical pair force with FoV modulation.
@@ -419,7 +448,7 @@ def ped_repulsive_force(pos, vel, desired_dir, alive, p: PedRepulsiveParams,
     Structure mirrors :func:`pedestrian_force`: row-blocked ``lax.map``,
     and under agent-sharding the column state (positions, velocities,
     liveness -- the law never reads the row pedestrian's own velocity)
-    all-gathers or ring-rotates over ICI.
+    all-gathers or ring-rotates.
     """
     n_local = pos.shape[0]
 

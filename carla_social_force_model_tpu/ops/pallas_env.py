@@ -1,41 +1,40 @@
-"""Fused Pallas TPU kernels for the environment forces (borders/obstacles).
+"""Fused Pallas kernels (Triton route, GPU) for the environment forces.
 
-The two-phase formulation (ops/geometry.closest_point_per_segment feeding
-ops/forces.border_force / obstacle_force) is bound by its (S, N)-shaped
-phase-2: the segmented min over chunks and especially the per-(segment, ped)
-point gathers cost ~14 us per segment row at N=10k on v5e -- 22 ms/step for
-a 154-section street grid, independent of the point count (measured,
-tools/profile_borders.py).  These kernels instead compute the per-segment
-closest point *and* the force in one pass and accumulate straight into the
-per-pedestrian force vector, so nothing (S, N)-shaped, no segmented
-reduction, and no gather ever exists:
+The jnp formulation (ops/geometry.closest_point_per_segment feeding
+ops/forces.border_force / obstacle_force) evaluates every (section,
+pedestrian) pair: it builds a ``(G, K, N)`` distance tensor, a segmented
+min and an ``(S, N, 2)`` gather of closest points.  On a street grid of
+~100k wall points against 10k pedestrians that is ~1e9 distance
+evaluations per step, almost all of them for sections whose coarse
+relevance filter (the reference's section-center/length circle, its
+forces.py:149-151, or the obstacle perception threshold, :222-224)
+excludes the pedestrian anyway.
 
-* segment-major layout (env/pointsets.SegmentPointSet): one fixed-size,
-  PAD-padded row of points per segment -- the within-row first-occurrence
-  argmin IS the reference's per-border/per-obstacle ``np.argmin``
-  (/root/reference/forces.py:154-155, :228-229);
-* pedestrians ride the lane axis, Morton-sorted (ops/spatial.py) so each
-  512-lane tile is spatially tight;
-* the reference's coarse relevance filters -- border section filter
-  (forces.py:149-151) and obstacle perception threshold (forces.py:222-224)
-  -- become (a) a per-(segment, ped) mask inside the kernel and (b) a
-  tile-level skip: a (point-tile, ped-tile) pair runs only if some segment's
-  filter circle touches the ped tile's bounding box.  Skipping is exact:
-  pairs outside the filter circle contribute zero force by definition.
+These kernels compute the per-section closest point *and* the force in
+one pass and skip the excluded work exactly:
 
-Two kernels cover all four environment forces:
+* pedestrians are sorted along a space-filling curve (ops/spatial.py) so
+  each tile of pedestrians is spatially tight; one program per tile;
+* an in-kernel loop walks the sections; a section runs only if its
+  filter circle touches the tile's bounding box (pairs outside the circle
+  contribute zero by definition, so the skip is exact);
+* a section's closest point is the first-occurrence argmin over its
+  sampled points (the reference's ``np.argmin``, forces.py:154-155,
+  :228-229), taken chunk by chunk with a strict ``<`` across chunks; the
+  analytic tier (``env_analytic``) instead projects onto the section's
+  Douglas-Peucker line segments in the same loop;
+* the force is accumulated straight into the tile's registers.
 
-* ``exp`` kernel: magnitude ``a * exp(-d/b)`` away from the closest point --
-  the border force (reference forces.py:138-179) and the Helbing-1995
-  space-repulsive force (u0/r * exp(-d/r));
-* ``moussaid`` kernel: the full Moussaid interaction against the closest
-  point with relative velocity -- static and dynamic obstacle forces
-  (reference forces.py:182-283), sharing the atan2 polynomial and parameter
-  folding of the pairwise kernel (ops/pallas_forces.py).
+Two force kinds cover the four environment terms:
 
-Equivalence to the jnp path (ops/forces.py) is enforced by
-tests/test_env_pallas.py in interpret mode and on hardware by
-tools/tpu_parity_check.py.
+* ``exp``: magnitude ``a * exp(-d/b)`` away from the closest point -- the
+  border force (forces.py:138-179) and the Helbing-1995 space-repulsive
+  force (u0/r * exp(-d/r));
+* ``moussaid``: the Moussaid interaction against the closest point with
+  relative velocity -- static and dynamic obstacles (forces.py:182-283).
+
+Equivalence to the jnp path is checked by tests/test_env_pallas.py in
+interpret mode and by chip_smoke.py compiled on the card.
 """
 from __future__ import annotations
 
@@ -44,475 +43,236 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
-from .pallas_forces import _atan2, _SENTINEL, _TINY
-from .spatial import morton_sort, surv_table, tile_bboxes
-from ..env.pointsets import PAD_COORD
-
-#: squared-distance threshold separating real closest points from padding
-#: sentinels (PAD_COORD = 1e8 -> padded distances >= ~1e14)
-_PAD_DIST2 = 1e13
-_PAD32 = float(PAD_COORD)
+from .geometry import _PAD, _PAD_DIST2
+from .pallas_forces import (_NUM_STAGES, _NUM_WARPS, _SENTINEL, _TINY,
+                            _round_up)
+from .spatial import morton_sort, tile_bboxes
 
 
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _select_first_min(d2, cx, cy):
-    """First-occurrence argmin selection over axis 1 of a (gs, kk, tc)
-    distance tensor (the reference's ``np.argmin`` tie rule): returns
-    ``(dmin, cxm, cym)`` of shape (gs, tc) where cxm/cym are the selected
-    slot's coordinates (broadcast from (gs, kk, 1) or (gs, kk, tc)).
-    Unselected/pad slots yield PAD_COORD (finite, so masked magnitudes
-    multiply garbage by exactly 0.0 without producing NaN)."""
-    gs, kk, tc = d2.shape
-    dmin = jnp.min(d2, axis=1)                # (gs, tc)
-    sub = jax.lax.broadcasted_iota(jnp.int32, (gs, kk, tc), 1)
-    ismin = d2 == dmin[:, None, :]
-    first = jnp.min(jnp.where(ismin, sub, 2**31 - 1), axis=1)
-    sel = ismin & (sub == first[:, None, :])
-    cxm = jnp.min(jnp.where(sel, cx, _PAD32), axis=1)
-    cym = jnp.min(jnp.where(sel, cy, _PAD32), axis=1)
-    return dmin, cxm, cym
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def _closest_sel(bx, by, px, py, *, gs, kk):
-    """Per-(segment, ped) closest point within one kernel tile.
+def _closest(pt_refs, base, px, py, *, analytic, kc, n_chunks):
+    """Closest point of one section to each pedestrian of the tile.
 
-    ``bx``/``by``: (gs*kk, 1) point planes; ``px``/``py``: (1, tc) ped
-    planes.  Returns ``(dmin2, bxm, bym)`` of shape (gs, tc) with
-    first-occurrence tie-breaking (:func:`_select_first_min`).
-    """
-    dxp = bx[...] - px[...]                   # (gs*kk, tc)
-    dyp = by[...] - py[...]
-    tc = dxp.shape[1]
-    d2 = (dxp * dxp + dyp * dyp).reshape(gs, kk, tc)
-    return _select_first_min(d2, bx[...].reshape(gs, kk, 1),
-                             by[...].reshape(gs, kk, 1))
+    ``pt_refs``: sampled (x, y) point planes, or analytic (ax, ay, ux, uy,
+    inv_len2) segment planes, each section occupying ``kc * n_chunks``
+    consecutive slots from ``base``.  Returns ``(dmin2, cx, cy)`` of shape
+    (TP,) with first-occurrence tie-breaking over the section's slots.
+    Padding slots sit at PAD_COORD and lose every comparison."""
 
+    def chunk(c, best):
+        start = pl.multiple_of(base + c * kc, kc)
+        if analytic:
+            ax, ay, ux, uy, il2 = (r[pl.ds(start, kc)][:, None]
+                                   for r in pt_refs)
+            t = jnp.clip(((px[None, :] - ax) * ux + (py[None, :] - ay) * uy)
+                         * il2, 0.0, 1.0)
+            cx = ax + t * ux                       # (kc, TP)
+            cy = ay + t * uy
+        else:
+            cx, cy = (r[pl.ds(start, kc)][:, None] for r in pt_refs)
+        ddx = px[None, :] - cx
+        ddy = py[None, :] - cy
+        d2 = ddx * ddx + ddy * ddy                 # (kc, TP)
+        dmin = jnp.min(d2, axis=0)
+        ids = jax.lax.broadcasted_iota(jnp.int32, d2.shape, 0)
+        first = jnp.min(jnp.where(d2 == dmin[None, :], ids, kc), axis=0)
+        sel = ids == first[None, :]
+        sx = jnp.sum(jnp.where(sel, cx, 0.0), axis=0)
+        sy = jnp.sum(jnp.where(sel, cy, 0.0), axis=0)
+        bd, bx, by = best
+        better = dmin < bd                          # earlier chunk wins ties
+        return (jnp.where(better, dmin, bd), jnp.where(better, sx, bx),
+                jnp.where(better, sy, by))
 
-def _closest_seg(ax, ay, ux, uy, il2, px, py, *, gs, mm):
-    """Per-(section, ped) closest point ON the section's line segments
-    (the ``env_analytic`` tier; see env/pointsets.SegmentGeomSet).
-
-    ``ax``/``ay``/``ux``/``uy``/``il2``: (gs*mm, 1) segment planes (start,
-    vector, 1/|u|^2); ``px``/``py``: (1, tc) ped planes.  Returns
-    ``(dmin2, cxm, cym)`` of shape (gs, tc) with first-occurrence
-    tie-breaking over the section's segments.  Padding segments
-    (ax = PAD_COORD, ux = il2 = 0) project to the PAD sentinel and mask
-    by distance; degenerate single-point sections (ux = uy = 0, il2 = 0)
-    project to the point itself.
-    """
-    dxa = px[...] - ax[...]                    # (gs*mm, tc)
-    dya = py[...] - ay[...]
-    t = jnp.clip((dxa * ux[...] + dya * uy[...]) * il2[...], 0.0, 1.0)
-    cx = ax[...] + t * ux[...]
-    cy = ay[...] + t * uy[...]
-    ddx = px[...] - cx
-    ddy = py[...] - cy
-    tc = ddx.shape[1]
-    d2 = (ddx * ddx + ddy * ddy).reshape(gs, mm, tc)
-    return _select_first_min(d2, cx.reshape(gs, mm, tc),
-                             cy.reshape(gs, mm, tc))
-
-
-def _closest(pt, px, py, *, gs, kk, analytic):
-    """Dispatch to the sampled-argmin or analytic-segment selector.
-    ``pt``: (bx, by) point planes, or (ax, ay, ux, uy, il2) segment
-    planes; ``kk`` is points-per-segment or segments-per-section."""
-    if analytic:
-        return _closest_seg(*pt, px, py, gs=gs, mm=kk)
-    return _closest_sel(pt[0], pt[1], px, py, gs=gs, kk=kk)
+    inf = jnp.full(px.shape, jnp.inf, jnp.float32)
+    init = (inf, jnp.zeros_like(inf), jnp.zeros_like(inf))
+    if n_chunks == 1:
+        return chunk(0, init)
+    return jax.lax.fori_loop(0, n_chunks, chunk, init)
 
 
-def _tile_hit(bb_ref, circ_ref, j, i, gs):
-    """Does any segment's filter circle in point tile ``i`` touch ped tile
-    ``j``'s bounding box?  Padded segments carry radius^2 = -1 (never hit);
-    empty ped tiles carry inverted infinite boxes (gaps are +inf).
-
-    ``bb_ref``/``circ_ref`` ride transposed -- (4, n_tiles) / (3, s_pad) --
-    so the large dimension is minor (SMEM pads small minor dims to 128
-    lanes just like VMEM; see ops/pallas_forces._pair_kernel)."""
-    minx = bb_ref[0, j]
-    maxx = bb_ref[1, j]
-    miny = bb_ref[2, j]
-    maxy = bb_ref[3, j]
-    hit = None
-    for gi in range(gs):
-        s = i * gs + gi
-        scx = circ_ref[0, s]
-        scy = circ_ref[1, s]
-        sr2 = circ_ref[2, s]
-        gx = jnp.maximum(jnp.maximum(scx - maxx, minx - scx), 0.0)
-        gy = jnp.maximum(jnp.maximum(scy - maxy, miny - scy), 0.0)
-        h = gx * gx + gy * gy <= sr2
-        hit = h if hit is None else jnp.logical_or(hit, h)
-    return hit
-
-
-def _exp_tilework(prm_ref, pt, cxg, cyg, r2g, px, py, prad,
-                  fx_ref, fy_ref, *, gs, kk, use_radius, analytic=False):
-    """One (point-tile, ped-tile) accumulation of the exp-magnitude force:
-    f = a * exp(-d/b) away from the per-segment closest point, summed over
-    in-filter segments (reference forces.py:154-165; the space repulsive
-    variant maps a = u0/r, b = r).  ``cxg``/``cyg``/``r2g``: (gs, 1)
-    segment metadata for THIS point tile; ``pt``: sampled point planes or
-    analytic segment planes (see :func:`_closest`)."""
-    a = prm_ref[0]
-    inv_b = prm_ref[1]
-    dmin, bxm, bym = _closest(pt, px, py, gs=gs, kk=kk, analytic=analytic)
+def _exp_force(prm_ref, dmin, cx, cy, ok, px, py, prad, *, use_radius):
+    """``a * exp(-d/b)`` away from the closest point (reference
+    forces.py:154-165; the space-repulsive variant maps a = u0/r, b = r)."""
     r = jax.lax.rsqrt(dmin + _TINY)
     d = dmin * r
     if use_radius:
-        d = d - prad[...]
-    fdx = cxg - px[...]                      # (gs, tc) filter distance
-    fdy = cyg - py[...]
-    ok = (fdx * fdx + fdy * fdy < r2g) & (dmin < _PAD_DIST2)
-    # e = (ped - point) * r; fold the unit vector's r into the magnitude
-    mag = jnp.where(ok, (a * jnp.exp(-d * inv_b)) * r, 0.0)
-    fx_ref[...] += jnp.sum(mag * (px[...] - bxm), axis=0, keepdims=True)
-    fy_ref[...] += jnp.sum(mag * (py[...] - bym), axis=0, keepdims=True)
+        d = d - prad
+    mag = jnp.where(ok, (prm_ref[0] * jnp.exp(-d * prm_ref[1])) * r, 0.0)
+    return mag * (px - cx), mag * (py - cy)
 
 
-def _moussaid_tilework(prm_ref, pt, cxg, cyg, r2g, ovxg, ovyg,
-                       px, py, pvx, pvy, prad,
-                       fx_ref, fy_ref, *, gs, kk, use_radius,
-                       analytic=False):
-    """One (point-tile, ped-tile) accumulation of the Moussaid interaction
-    against the per-segment closest point with relative velocity
-    v_ped - v_obstacle (reference forces.py:233-270), using the pairwise
-    kernel's parameter folding and atan2 polynomial."""
-    lam = prm_ref[0]
-    A = prm_ref[1]
-    gamma = prm_ref[2]
-    n = prm_ref[3]
-    n_prime = prm_ref[4]
-    epsilon = prm_ref[5]
-
-    dmin, bxm, bym = _closest(pt, px, py, gs=gs, kk=kk, analytic=analytic)
-    dx = bxm - px[...]                     # ped -> obstacle point
-    dy = bym - py[...]
+def _moussaid_force(prm_ref, dmin, cx, cy, ok, px, py, prad, pvx, pvy,
+                    ovx, ovy, *, use_radius):
+    """Moussaid interaction against the closest point with relative
+    velocity v_ped - v_obstacle (reference forces.py:233-270); the same
+    folding as ops/pallas_forces._pair_tile."""
+    lam, A, gamma, n, n_prime, epsilon = (prm_ref[k] for k in range(6))
+    dx = cx - px                           # ped -> obstacle point
+    dy = cy - py
     r = jax.lax.rsqrt(dmin + _TINY)
     ex = dx * r
     ey = dy * r
     d = dmin * r
     if use_radius:
-        d = d - prad[...]
-
-    dvx = pvx[...] - ovxg                  # v_ped - v_obstacle
-    dvy = pvy[...] - ovyg
-    tx = lam * dvx + ex
-    ty = lam * dvy + ey
+        d = d - prad
+    tx = lam * (pvx - ovx) + ex
+    ty = lam * (pvy - ovy) + ey
     t2 = tx * tx + ty * ty
     rt = jax.lax.rsqrt(t2 + _TINY)
     t_len = t2 * rt
-    cross = tx * ey - ty * ex
-    dot = ex * tx + ey * ty
-    theta = _atan2(cross, dot) + (-epsilon * gamma) * t_len
-
-    fdx = cxg - px[...]
-    fdy = cyg - py[...]
-    ok = ((fdx * fdx + fdy * fdy < r2g)
-          & (dmin < _PAD_DIST2) & (dmin > 0.0))
+    theta = (jnp.arctan2(tx * ey - ty * ex, ex * tx + ey * ty)
+             + (-epsilon * gamma) * t_len)
+    ok = ok & (dmin > 0.0)
     if use_radius:
-        # d can be negative with radii subtracted while t2 == 0; mask
-        # B > 0 explicitly (without radii the exp underflows on its own)
+        # d can be negative with radii subtracted while t2 == 0
         ok = ok & (t2 > 0.0)
     common = jnp.where(ok, d * rt * (-1.0 / gamma), -jnp.inf)
     u2 = jnp.square(t_len * theta)
-    f_v = -A * jnp.exp(common - jnp.square(n_prime * gamma) * u2)
-    f_t = (-A * jnp.sign(theta)) * jnp.exp(
-        common - jnp.square(n * gamma) * u2)
-    f_v = f_v * rt
-    f_t = f_t * rt
-    fx_ref[...] += jnp.sum(f_v * tx - f_t * ty, axis=0, keepdims=True)
-    fy_ref[...] += jnp.sum(f_v * ty + f_t * tx, axis=0, keepdims=True)
+    f_v = -A * jnp.exp(common - jnp.square(n_prime * gamma) * u2) * rt
+    f_t = ((-A * jnp.sign(theta))
+           * jnp.exp(common - jnp.square(n * gamma) * u2) * rt)
+    return f_v * tx - f_t * ty, f_v * ty + f_t * tx
 
 
-def _exp_kernel(prm_ref, bb_ref, circ_ref, *args, gs, kk, use_radius,
-                analytic=False):
-    """Dense-grid exp kernel: every (ped-tile, point-tile) pair is a grid
-    step; the filter-circle/bbox test skips non-interacting pairs.
-    ``args``: point/segment planes (2 sampled or 5 analytic), cx, cy, r2
-    segment metadata, px, py, prad ped planes, then the two outputs."""
-    j = pl.program_id(0)
-    i = pl.program_id(1)
+def _env_kernel(prm_ref, bb_ref, meta_ref, *refs, kind, analytic, n_seg,
+                kc, n_chunks, use_radius):
+    """One program per pedestrian tile: loop over the sections, skipping
+    those whose filter circle misses the tile's bounding box.
+
+    ``meta_ref`` rows: filter center x, y, radius^2 (-1 = never), and for
+    ``kind="moussaid"`` the obstacle velocity x, y."""
     n_pt = 5 if analytic else 2
-    pt = args[:n_pt]
-    cx, cy, r2 = args[n_pt: n_pt + 3]
-    px, py, prad = args[n_pt + 3: n_pt + 6]
-    fx_ref, fy_ref = args[n_pt + 6: n_pt + 8]
-
-    @pl.when(i == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
-
-    @pl.when(_tile_hit(bb_ref, circ_ref, j, i, gs))
-    def _():
-        # segment metadata rides as full (S_pad, 1) arrays (tiny; loaded
-        # once -- constant index map); slice this tile's gs rows here (a
-        # (gs, 1) block shape would violate the TPU (8, 128) block rule
-        # for gs not divisible by 8)
-        cxg = cx[pl.ds(i * gs, gs), :]           # (gs, 1)
-        cyg = cy[pl.ds(i * gs, gs), :]
-        r2g = r2[pl.ds(i * gs, gs), :]
-        _exp_tilework(prm_ref, pt, cxg, cyg, r2g, px, py, prad,
-                      fx_ref, fy_ref, gs=gs, kk=kk, use_radius=use_radius,
-                      analytic=analytic)
-
-
-def _moussaid_kernel(prm_ref, bb_ref, circ_ref, *args, gs, kk, use_radius,
-                     analytic=False):
-    """Dense-grid Moussaid kernel (see _exp_kernel)."""
+    pt_refs = refs[:n_pt]
+    fx_ref, fy_ref = refs[-2:]
+    peds = [r[...] for r in refs[n_pt:-2]]
+    px, py, prad = peds[:3]
     j = pl.program_id(0)
-    i = pl.program_id(1)
-    n_pt = 5 if analytic else 2
-    pt = args[:n_pt]
-    cx, cy, r2, ovx, ovy = args[n_pt: n_pt + 5]
-    px, py, pvx, pvy, prad = args[n_pt + 5: n_pt + 10]
-    fx_ref, fy_ref = args[n_pt + 10: n_pt + 12]
+    minx, maxx, miny, maxy = (bb_ref[k, j] for k in range(4))
 
-    @pl.when(i == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
+    def section(s, acc):
+        scx = meta_ref[0, s]
+        scy = meta_ref[1, s]
+        sr2 = meta_ref[2, s]
+        gx = jnp.maximum(jnp.maximum(scx - maxx, minx - scx), 0.0)
+        gy = jnp.maximum(jnp.maximum(scy - maxy, miny - scy), 0.0)
 
-    @pl.when(_tile_hit(bb_ref, circ_ref, j, i, gs))
-    def _():
-        cxg = cx[pl.ds(i * gs, gs), :]
-        cyg = cy[pl.ds(i * gs, gs), :]
-        r2g = r2[pl.ds(i * gs, gs), :]
-        ovxg = ovx[pl.ds(i * gs, gs), :]
-        ovyg = ovy[pl.ds(i * gs, gs), :]
-        _moussaid_tilework(prm_ref, pt, cxg, cyg, r2g, ovxg, ovyg,
-                           px, py, pvx, pvy, prad, fx_ref, fy_ref,
-                           gs=gs, kk=kk, use_radius=use_radius,
-                           analytic=analytic)
+        def compute():
+            dmin, cx, cy = _closest(pt_refs, s * (kc * n_chunks), px, py,
+                                    analytic=analytic, kc=kc,
+                                    n_chunks=n_chunks)
+            fdx = scx - px
+            fdy = scy - py
+            ok = (fdx * fdx + fdy * fdy < sr2) & (dmin < _PAD_DIST2)
+            if kind == "exp":
+                fx, fy = _exp_force(prm_ref, dmin, cx, cy, ok, px, py, prad,
+                                    use_radius=use_radius)
+            else:
+                fx, fy = _moussaid_force(
+                    prm_ref, dmin, cx, cy, ok, px, py, prad, peds[3],
+                    peds[4], meta_ref[3, s], meta_ref[4, s],
+                    use_radius=use_radius)
+            return acc[0] + fx, acc[1] + fy
 
+        return jax.lax.cond(gx * gx + gy * gy <= sr2, compute, lambda: acc)
 
-def _exp_kernel_compact(prm_ref, bb_ref, circ_ref, surv_ref, *args,
-                        gs, kk, use_radius, analytic=False):
-    """Compacted-grid exp kernel: grid slot (j, i) computes the i-th
-    SURVIVING point tile of ped tile j (``surv_ref[i, j]`` -- the table
-    rides transposed (max_surv, J) for SMEM minor-dim padding -- built per
-    step by :func:`_tile_hits`; -1 pads with fewer survivors).  Point and
-    segment-metadata blocks arrive via surv-indexed index maps, so the
-    kernel never touches skipped tiles -- the per-segment filter mask in
-    the tilework keeps the semantics exact."""
-    j = pl.program_id(0)
-    i = pl.program_id(1)
-    n_pt = 5 if analytic else 2
-    pt = args[:n_pt]
-    cxg, cyg, r2g = args[n_pt: n_pt + 3]
-    px, py, prad = args[n_pt + 3: n_pt + 6]
-    fx_ref, fy_ref = args[n_pt + 6: n_pt + 8]
-
-    @pl.when(i == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
-
-    @pl.when(surv_ref[i, j] >= 0)
-    def _():
-        _exp_tilework(prm_ref, pt, cxg[...], cyg[...], r2g[...],
-                      px, py, prad, fx_ref, fy_ref,
-                      gs=gs, kk=kk, use_radius=use_radius,
-                      analytic=analytic)
+    zero = jnp.zeros(px.shape, jnp.float32)
+    fx, fy = jax.lax.fori_loop(0, n_seg, section, (zero, zero))
+    fx_ref[...] = fx
+    fy_ref[...] = fy
 
 
-def _moussaid_kernel_compact(prm_ref, bb_ref, circ_ref, surv_ref, *args,
-                             gs, kk, use_radius, analytic=False):
-    """Compacted-grid Moussaid kernel (see _exp_kernel_compact)."""
-    j = pl.program_id(0)
-    i = pl.program_id(1)
-    n_pt = 5 if analytic else 2
-    pt = args[:n_pt]
-    cxg, cyg, r2g, ovxg, ovyg = args[n_pt: n_pt + 5]
-    px, py, pvx, pvy, prad = args[n_pt + 5: n_pt + 10]
-    fx_ref, fy_ref = args[n_pt + 10: n_pt + 12]
+def _env_force_call(kind, prm, pt_planes, meta, ped_planes, bb, *, n_seg,
+                    kc, n_chunks, tp, use_radius, analytic, interpret):
+    """One fused launch; returns (fx, fy) of shape (n_pad,)."""
+    n_pad = ped_planes[0].shape[0]
 
-    @pl.when(i == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
+    def whole(a):
+        return pl.BlockSpec(a.shape, lambda j: (0,) * a.ndim)
 
-    @pl.when(surv_ref[i, j] >= 0)
-    def _():
-        _moussaid_tilework(prm_ref, pt, cxg[...], cyg[...], r2g[...],
-                           ovxg[...], ovyg[...], px, py, pvx, pvy, prad,
-                           fx_ref, fy_ref, gs=gs, kk=kk,
-                           use_radius=use_radius, analytic=analytic)
-
-
-def _stage_lane(a, fill, mask, n_pad):
-    """(n,) -> (n_pad,) f32 with dead/padded slots at ``fill``."""
-    n = a.shape[0]
-    a = jnp.where(mask, a.astype(jnp.float32), jnp.float32(fill))
-    return jnp.full((n_pad,), jnp.float32(fill)).at[:n].set(a)
-
-
-def _stage_seg_plane(a, fill, s_pad):
-    s = a.shape[0]
-    return jnp.full((s_pad, 1), jnp.float32(fill)).at[:s, 0].set(
-        a.astype(jnp.float32))
-
-
-def _tile_hits(bb, circ, gs, n_seg_tiles):
-    """(n_ped_tiles, n_seg_tiles) bool: does any segment's filter circle in
-    point tile i touch ped tile j's bounding box?  The jnp twin of the
-    in-kernel :func:`_tile_hit` (same padded-segment / empty-tile
-    semantics), evaluated once per step to build the compacted grid."""
-    minx, maxx, miny, maxy = bb[0], bb[1], bb[2], bb[3]      # (J,)
-    scx, scy, sr2 = circ[0], circ[1], circ[2]                # (s_pad,)
-    gx = jnp.maximum(jnp.maximum(scx[None, :] - maxx[:, None],
-                                 minx[:, None] - scx[None, :]), 0.0)
-    gy = jnp.maximum(jnp.maximum(scy[None, :] - maxy[:, None],
-                                 miny[:, None] - scy[None, :]), 0.0)
-    hit_seg = gx * gx + gy * gy <= sr2[None, :]              # (J, s_pad)
-    j = hit_seg.shape[0]
-    return hit_seg.reshape(j, n_seg_tiles, gs).any(axis=2)
-
-
-def _env_force_call(kind, prm, seg_points, circ_planes, obs_vel_planes,
-                    ped_planes, bb, circ, *, gs, kk, tc, n_pad,
-                    use_radius, interpret, surv=None, analytic=False):
-    """One fused kernel launch; returns (fx, fy) of shape (1, n_pad).
-
-    ``surv=None`` runs the dense grid (every (ped-tile, point-tile) pair a
-    grid step, skipped in-kernel by the bbox/circle test); a TRANSPOSED
-    (max_surv, J) int32 ``surv`` runs the compacted grid over surviving
-    tiles only, with point/segment blocks fetched through surv-indexed
-    index maps.  The transpose matters: scalar-prefetch arrays pad their
-    minor dimension to 128 lanes in SMEM (same rule as the pairwise
-    kernel's table, ops/pallas_forces._pair_kernel_compact), so the large
-    J = n_pad/tc dimension must be minor.
-
-    ``analytic``: ``seg_points`` holds 5 line-segment planes (ax, ay, ux,
-    uy, inv_len2; ``kk`` segments per section) instead of 2 sampled-point
-    planes (``kk`` points per segment) -- the env_analytic tier."""
-    s_pad_k = seg_points[0].shape[0]
-
-    s_pad = circ_planes[0].shape[0]
-    ped_spec = pl.BlockSpec((1, tc), lambda j, i, *_: (0, j),
-                            memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((1, tc), lambda j, i, *_: (0, j),
-                            memory_space=pltpu.VMEM)
-
-    if surv is None:
-        grid = (n_pad // tc, s_pad_k // (gs * kk))
-        num_prefetch = 3
-        prefetch = (prm, bb, circ)
-        pt_spec = pl.BlockSpec((gs * kk, 1), lambda j, i, *_: (i, 0),
-                               memory_space=pltpu.VMEM)
-        # segment metadata as whole arrays (a (gs, 1) block violates the
-        # TPU (8, 128) block-shape rule for gs not divisible by 8);
-        # kernels slice their gs rows with pl.ds
-        seg_spec = pl.BlockSpec((s_pad, 1), lambda j, i, *_: (0, 0),
-                                memory_space=pltpu.VMEM)
-        kern_exp, kern_mou = _exp_kernel, _moussaid_kernel
-    else:
-        grid = (n_pad // tc, surv.shape[0])
-        num_prefetch = 4
-        prefetch = (prm, bb, circ, surv)
-
-        def _surv_map(j, i, prm_r, bb_r, circ_r, surv_r):
-            # padded slots (-1) fetch tile 0; the kernel skips their compute
-            return (jnp.maximum(surv_r[i, j], 0), 0)
-
-        pt_spec = pl.BlockSpec((gs * kk, 1), _surv_map,
-                               memory_space=pltpu.VMEM)
-        # gs is rounded to a multiple of 8 in compact mode, so blocked
-        # (gs, 1) segment metadata satisfies the sublane tiling rule
-        seg_spec = pl.BlockSpec((gs, 1), _surv_map,
-                                memory_space=pltpu.VMEM)
-        kern_exp, kern_mou = _exp_kernel_compact, _moussaid_kernel_compact
-
-    n_pt = len(seg_points)
-    if kind == "exp":
-        kernel = functools.partial(kern_exp, gs=gs, kk=kk,
-                                   use_radius=use_radius, analytic=analytic)
-        inputs = [*seg_points, *circ_planes, *ped_planes]
-        in_specs = ([pt_spec] * n_pt + [seg_spec] * 3 + [ped_spec] * 3)
-        transcendentals = 2 * s_pad_k // kk * n_pad
-    else:
-        kernel = functools.partial(kern_mou, gs=gs, kk=kk,
-                                   use_radius=use_radius, analytic=analytic)
-        inputs = [*seg_points, *circ_planes, *obs_vel_planes, *ped_planes]
-        in_specs = ([pt_spec] * n_pt + [seg_spec] * 5 + [ped_spec] * 5)
-        transcendentals = 5 * s_pad_k // kk * n_pad
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=num_prefetch,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=(out_spec, out_spec),
-    )
+    ped_spec = pl.BlockSpec((tp,), lambda j: (j,))
+    kernel = functools.partial(
+        _env_kernel, kind=kind, analytic=analytic, n_seg=n_seg, kc=kc,
+        n_chunks=n_chunks, use_radius=use_radius)
     return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=(jax.ShapeDtypeStruct((1, n_pad), jnp.float32),
-                   jax.ShapeDtypeStruct((1, n_pad), jnp.float32)),
-        cost_estimate=pl.CostEstimate(
-            flops=int(12 * s_pad_k * n_pad),
-            bytes_accessed=int(4 * (2 * s_pad_k * grid[0]
-                                    + 8 * n_pad * grid[1])),
-            transcendentals=int(transcendentals)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=32 * 1024 * 1024),
+        grid=(n_pad // tp,),
+        in_specs=([whole(prm), whole(bb), whole(meta)]
+                  + [whole(p) for p in pt_planes]
+                  + [ped_spec] * len(ped_planes)),
+        out_specs=(ped_spec, ped_spec),
+        out_shape=(jax.ShapeDtypeStruct((n_pad,), jnp.float32),) * 2,
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=_NUM_WARPS,
+                                            num_stages=_NUM_STAGES),
         interpret=interpret,
-    )(*prefetch, *inputs)
+        name=f"env_force_{kind}",
+    )(prm, bb, meta, *pt_planes, *ped_planes)
+
+
+def _stage_points(sset, analytic: bool, point_chunk: int):
+    """Section-major point (or segment) planes, each section padded to a
+    whole number of power-of-two chunks.  Returns (planes, kc, n_chunks)."""
+    s = sset.num_segments
+    k = sset.max_segments if analytic else sset.points_per_segment
+    kc = min(point_chunk, _next_pow2(k))
+    k_pad = _round_up(k, kc)
+
+    def plane(arr, fill):
+        arr = arr.reshape(s, k).astype(jnp.float32)
+        out = jnp.full((s, k_pad), jnp.float32(fill)).at[:, :k].set(arr)
+        return out.reshape(-1)
+
+    if analytic:
+        planes = [plane(sset.ax, _PAD), plane(sset.ay, _PAD),
+                  plane(sset.ux, 0.0), plane(sset.uy, 0.0),
+                  plane(sset.inv_len2, 0.0)]
+    else:
+        planes = [plane(sset.points[..., 0], _PAD),
+                  plane(sset.points[..., 1], _PAD)]
+    return planes, kc, k_pad // kc
 
 
 def fused_environment_terms(state, scene, params, veh_snap,
-                            ped_tile: int = 512, point_tile: int = 1024,
+                            ped_tile: int = 32, point_tile: int = 128,
                             interpret: bool = False,
                             spatial_order: str = "hilbert",
-                            compact: bool = False, max_surv: int = 0,
                             analytic: bool = False):
     """Environment force terms via the fused kernels, keyed like
-    models.stepper.force_terms.  Covers the terms whose segment-major
-    layout is available (models.stepper.prepare_scene) -- callers fall back
-    to the jnp path for the rest.
+    models.stepper.force_terms.  Covers the terms whose section-major
+    layout is available (models.stepper.prepare_scene); callers use the
+    jnp path for the rest.
 
-    One Morton sort + staging is shared by all terms; each term unsorts only
-    its final (N, 2) force vector.
+    ``ped_tile``: pedestrians per program (power of two).  ``point_tile``:
+    sampled points per inner chunk (power of two; sections are padded to a
+    whole number of chunks).
+
+    One locality sort and staging is shared by all terms; each term
+    unsorts only its final force planes.
 
     ``analytic`` (``StepConfig.env_analytic``): border-family forces use
     the line-segment geometry (``scene.borders_geom``, built by
     prepare_scene via env/pointsets.analytic_split) -- the closest point
     is computed ON the Douglas-Peucker-simplified segments instead of by
-    argmin over the reference's 0.1 m point sampling, ~kk/M times less
-    work per (section, ped) pair.  Sections that do not simplify stay on
-    the sampled path (``scene.borders_seg_rest``) and their term is added,
-    so the split is exact up to f32 summation grouping.  Deviation from
-    the reference's sampled argmin is bounded by the sampling quantization
-    itself (the analytic distance is the true polyline distance, which the
-    0.1 m sampling overestimates by up to sqrt(d^2+0.05^2)-d).
-
-    ``compact`` (default off, matching ``StepConfig.env_compact``):
-    evaluate the tile-pair hit matrix in jnp each step and launch the
-    kernel grid over only the surviving point tiles per ped tile
-    (scalar-prefetch surv-indexed blocks) -- on sparse geometries (many
-    segments, local pedestrians) this removes most grid steps.  A
-    ``lax.cond`` falls back to a dense grid at the same gs_c granularity
-    whenever any ped tile has more than ``max_surv`` survivors (0 = auto:
-    ~1/3 of the point tiles, min 8), so compact mode is bitwise-consistent
-    across overflow and non-overflow steps.  Compact runs at 8-segment
-    tile granularity; when ``point_tile // points_per_segment`` is not a
-    multiple of 8 this groups the f32 segment sum differently than
-    ``compact=False``, so cross-mode equality is exact only in value
-    order (allclose), bitwise when the granularities coincide.
+    argmin over the reference's 0.1 m point sampling.  Sections that do
+    not simplify stay on the sampled path (``scene.borders_seg_rest``) and
+    their term is added.  The deviation from the reference's sampled
+    argmin is bounded by the sampling quantization itself.
     """
     from ..models import modes
     from ..models.vehicles import snapshot_segment_pointset
 
-    # (name, kind, set, prm tuple, obs_vel, active, use_radius, analytic);
-    # "<term>#rest" names are summed into <term> at the end (the sampled
-    # remainder of an analytic split)
+    if ped_tile < 1 or ped_tile & (ped_tile - 1):
+        raise ValueError(f"env ped_tile must be a power of two, "
+                         f"got {ped_tile}")
+    # (name, kind, set, prm values, obstacle vel, active, use_radius,
+    # analytic); "<term>#rest" sums into <term> (the sampled remainder of
+    # an analytic split)
     jobs = []
     use_geom = analytic and getattr(scene, "borders_geom", None) is not None
 
@@ -552,134 +312,52 @@ def fused_environment_terms(state, scene, params, veh_snap,
     if not jobs:
         return {}
 
-    radius, mode, alive = state.radius, state.mode, state.alive
+    alive = state.alive
     n = state.pos_x.shape[0]
-    tc = ped_tile
-    n_pad = _round_up(max(n, tc), tc)
+    tp = ped_tile
+    n_pad = _round_up(max(n, tp), tp)
 
     (spx, spy, svx, svy, srad, salive), inv = morton_sort(
         (state.pos_x, state.pos_y), alive,
-        (state.pos_x, state.pos_y, state.vel_x, state.vel_y, radius, alive),
-        order=spatial_order)
-    px = _stage_lane(spx, _SENTINEL, salive, n_pad)
-    py = _stage_lane(spy, _SENTINEL, salive, n_pad)
-    pvx = _stage_lane(svx, 0.0, salive, n_pad)
-    pvy = _stage_lane(svy, 0.0, salive, n_pad)
-    prad = _stage_lane(srad, 0.0, salive, n_pad)
-    alive_pad = jnp.zeros((n_pad,), bool).at[:n].set(salive)
-    bb = tile_bboxes(px, py, alive_pad, tc).T   # (4, n_tiles) SMEM
-    lane = lambda a: a.reshape(1, n_pad)  # noqa: E731
+        (state.pos_x, state.pos_y, state.vel_x, state.vel_y, state.radius,
+         alive), order=spatial_order)
 
-    crossing = ((mode == modes.CROSSING_ROAD)
-                | (mode == modes.ROAD_TO_SIDEWALK))
+    def lane(a, fill):
+        a = jnp.where(salive, a.astype(jnp.float32), jnp.float32(fill))
+        return jnp.full((n_pad,), jnp.float32(fill)).at[:n].set(a)
+
+    px, py = lane(spx, _SENTINEL), lane(spy, _SENTINEL)
+    pvx, pvy, prad = lane(svx, 0.0), lane(svy, 0.0), lane(srad, 0.0)
+    alive_pad = jnp.zeros((n_pad,), bool).at[:n].set(salive)
+    bb = tile_bboxes(px, py, alive_pad, tp).T      # (4, n_tiles)
+    crossing = ((state.mode == modes.CROSSING_ROAD)
+                | (state.mode == modes.ROAD_TO_SIDEWALK))
 
     terms = {}
     for (name, kind, sset, prm_vals, obs_vel, active, use_radius,
          is_analytic) in jobs:
         s = sset.num_segments
-        kk = sset.max_segments if is_analytic else sset.points_per_segment
-        # compact mode needs gs % 8 == 0 (blocked (gs, 1) segment metadata
-        # must satisfy the sublane tiling rule) and only pays off when the
-        # surviving-tile bound is actually below the tile count
-        gs_d = max(1, point_tile // kk)
-        gs_c = _round_up(gs_d, 8)
-        n_tiles_c = _round_up(s, gs_c) // gs_c
-        ms = max_surv if max_surv > 0 else min(
-            n_tiles_c, max(8, -(-n_tiles_c // 3)))
-        use_compact = compact and n_tiles_c > ms
-
-        if not is_analytic:
-            ptsx = sset.points[..., 0].reshape(-1)
-            ptsy = sset.points[..., 1].reshape(-1)
-        r = jnp.maximum(sset.filter_radius, 0.0)
-        r2 = r * r
+        pts, kc, n_chunks = _stage_points(sset, is_analytic, point_tile)
+        r2 = jnp.square(jnp.maximum(sset.filter_radius, 0.0))
         if active is not None:
             r2 = jnp.where(active, r2, -1.0)
-        ov = None
+        meta = [sset.centers[:, 0], sset.centers[:, 1], r2]
+        ped_planes = [px, py, prad]
         if kind == "moussaid":
             ov = (obs_vel if obs_vel is not None
                   else jnp.zeros((s, 2), jnp.float32))
-            ped_planes = [lane(px), lane(py), lane(pvx), lane(pvy),
-                          lane(prad)]
-        else:
-            ped_planes = [lane(px), lane(py), lane(prad)]
-
-        def stage(gs_):
-            """Point/segment staging for one grid granularity."""
-            s_pad_ = _round_up(s, gs_)
-            if is_analytic:
-
-                def geom_plane(arr, fill):
-                    out = jnp.full((s_pad_ * kk, 1), jnp.float32(fill))
-                    return out.at[: s * kk, 0].set(
-                        arr.reshape(-1).astype(jnp.float32))
-
-                pts_ = [geom_plane(sset.ax, _PAD32),
-                        geom_plane(sset.ay, _PAD32),
-                        geom_plane(sset.ux, 0.0),
-                        geom_plane(sset.uy, 0.0),
-                        geom_plane(sset.inv_len2, 0.0)]
-            else:
-                bxp = jnp.full((s_pad_ * kk, 1), _PAD32, jnp.float32)
-                bxp = bxp.at[: s * kk, 0].set(ptsx.astype(jnp.float32))
-                byp = jnp.full((s_pad_ * kk, 1), _PAD32, jnp.float32)
-                byp = byp.at[: s * kk, 0].set(ptsy.astype(jnp.float32))
-                pts_ = [bxp, byp]
-            cxp = _stage_seg_plane(sset.centers[:, 0], _PAD32, s_pad_)
-            cyp = _stage_seg_plane(sset.centers[:, 1], _PAD32, s_pad_)
-            r2p = _stage_seg_plane(r2, -1.0, s_pad_)
-            circ_ = jnp.concatenate([cxp, cyp, r2p], axis=1).T  # (3, s_pad)
-            obs_ = []
-            if kind == "moussaid":
-                obs_ = [_stage_seg_plane(ov[:, 0], 0.0, s_pad_),
-                        _stage_seg_plane(ov[:, 1], 0.0, s_pad_)]
-            return pts_, [cxp, cyp, r2p], obs_, circ_, s_pad_
-
+            meta += [ov[:, 0], ov[:, 1]]
+            ped_planes += [pvx, pvy]
+        meta = jnp.stack([m.astype(jnp.float32) for m in meta])
         prm = jnp.stack([jnp.asarray(v, jnp.float32) for v in prm_vals])
-
-        def call(gs_, staged, surv=None):
-            pts_, cpl_, obs_, circ_, _ = staged
-            return _env_force_call(
-                kind, prm, pts_, cpl_, obs_, ped_planes, bb, circ_,
-                gs=gs_, kk=kk, tc=tc, n_pad=n_pad,
-                use_radius=use_radius, interpret=interpret, surv=surv,
-                analytic=is_analytic)
-
-        if use_compact:
-            # the transposed (ms, J) scalar-prefetch table pads its minor
-            # dim to 128 lanes and must fit the ~1 MB v5e SMEM; fail with
-            # advice instead of the opaque AOT allocation error (the same
-            # guard the pairwise compacted grid carries)
-            j_tiles = n_pad // tc
-            table_bytes = 4 * ms * _round_up(j_tiles, 128)
-            if not interpret and table_bytes > 1_000_000:
-                raise ValueError(
-                    f"compacted env-kernel survivor table ({ms} x {j_tiles} "
-                    f"ped tiles = {table_bytes / 1e6:.2f} MB) exceeds the "
-                    f"~1 MB TPU SMEM: raise env_ped_tile, lower "
-                    f"env_max_surv, or disable env_compact")
-            staged_c = stage(gs_c)
-            hits = _tile_hits(bb, staged_c[3], gs_c, staged_c[4] // gs_c)
-            surv, fits = surv_table(hits, ms)
-            surv = surv.T  # (ms, J): SMEM minor-dim padding (see call)
-            # the overflow fallback runs the dense grid at the SAME gs_c
-            # granularity: both cond branches then accumulate segment
-            # groups in identical ascending order, so a compact-mode run
-            # is bitwise-consistent whether or not a step overflows (and
-            # bitwise-equal to a dense gs_c launch).  A gs_d fallback
-            # would skip better on the dense grid but flip f32 rounding
-            # between overflow and non-overflow steps whenever
-            # gs_d != gs_c (i.e. point_tile // kk not a multiple of 8).
-            fx, fy = jax.lax.cond(
-                fits,
-                lambda: call(gs_c, staged_c, surv=surv),
-                lambda: call(gs_c, staged_c))
-        else:
-            fx, fy = call(gs_d, stage(gs_d))
+        fx, fy = _env_force_call(
+            kind, prm, pts, meta, ped_planes, bb, n_seg=s, kc=kc,
+            n_chunks=n_chunks, tp=tp, use_radius=use_radius,
+            analytic=is_analytic, interpret=interpret)
 
         dtype = state.pos_x.dtype
-        ux = fx[0, :n][inv].astype(dtype)
-        uy = fy[0, :n][inv].astype(dtype)
+        ux = fx[:n][inv].astype(dtype)
+        uy = fy[:n][inv].astype(dtype)
         if kind == "exp":
             # border/space forces are disabled for crossing pedestrians
             # (reference forces.py:176-177)
@@ -687,9 +365,8 @@ def fused_environment_terms(state, scene, params, veh_snap,
             uy = jnp.where(crossing, 0.0, uy)
         base = name.split("#")[0]
         if base in terms:
-            # the sampled remainder of an analytic split sums into its term
-            px_, py_ = terms[base]
-            terms[base] = (px_ + ux, py_ + uy)
+            tx, ty = terms[base]
+            terms[base] = (tx + ux, ty + uy)
         else:
             terms[base] = (ux, uy)
     return terms

@@ -1,29 +1,39 @@
-"""Fused Pallas TPU kernels for the N x N pedestrian pair forces.
+"""Fused Pallas kernels (Triton route, GPU) for the N x N pair forces.
 
-Three model families ride one launch machinery (tile grids, cutoff bbox
-skipping, compacted survivor tables, ring/gather sharding) through the
-per-law tile dispatch (:func:`_tile_fn`): ``law="moussaid"`` (the
-reference's force, below), ``law="powerlaw"`` (Karamouzas et al. 2014
-time-to-collision), and ``law="helbing"`` (Helbing-Molnar 1995 elliptical
-repulsion with field-of-view).
+Three model families share one launch (:func:`_tile_fn`): ``law=
+"moussaid"`` (the reference's force), ``law="powerlaw"`` (Karamouzas et
+al. 2014 time-to-collision) and ``law="helbing"`` (Helbing-Molnar 1995
+elliptical repulsion with field-of-view).
 
-The jnp formulation (ops/forces.pedestrian_force) is HBM-bound: XLA
-materializes multiple (rows, N) pairwise intermediates per row block.  This
-kernel tiles the interaction matrix over a (row_tile x col_tile) grid and
-keeps every pairwise temporary in VMEM, so HBM traffic drops to the O(N)
-state vectors and the O(N) force output.  The per-pair math is division-
-free and mask-free (see _pair_tile) and sits near the transcendental-unit
-floor of 5 ops/pair (2 rsqrt, 2 exp, 1 reciprocal).
+The jnp formulation (ops/forces.pedestrian_force) is a ``lax.map`` over
+row blocks that builds several ``(row_block, N)`` pairwise planes per
+block.  The pair math is ~40 flops and 5 transcendentals per pair on ~20
+bytes of agent state, so a kernel that keeps the pairwise temporaries in
+registers is bound by the ALU/SFU, not by memory.
 
-Semantics are identical to ops/forces._moussaid_pair_force (same masking
-rule, same zero-guards); equivalence is enforced by tests against the jnp
-path and the float64 oracle, and on hardware by tools/tpu_parity_check.py.
+Kernel layout (designed for a GPU, not carried over from a sequential
+grid):
 
-Layout: row state ships as (N_pad, 1) sublane vectors and column state as
-(1, N_pad) lane vectors (x, y, vx, vy, radius), so the (TR, TC) broadcast
-needs no in-kernel relayout; each grid step accumulates the row force tile
-over the column grid dimension (sequential TPU grid -> revisiting-output
-accumulation).  Dead/padded agents are pre-staged at a far sentinel.
+* one program per row tile; the row tile's state stays in registers as
+  ``(TR, 1)`` columns, and each program writes its own rows (no atomics,
+  so results are deterministic);
+* an in-kernel ``fori_loop`` walks the column tiles, loading ``(1, TC)``
+  rows of the x/y/vx/vy/r planes and reducing each ``(TR, TC)`` pair
+  block into the row accumulators;
+* with an interaction ``cutoff`` the wrapper computes every tile's
+  bounding box and, per row tile, the ascending list of column tiles
+  within the cutoff; each program walks only its list.  When a list would
+  overflow its width (or there are few column tiles) the loop instead
+  tests each column tile's box, loaded by the block, and skips the far
+  ones -- the two launches sum the same tiles, in ascending order.  With
+  the locality sort of :func:`pedestrian_force_pallas_sorted` the cutoff
+  kernel is O(N) at fixed density; the per-pair cutoff keeps the result
+  independent of the tile layout.
+
+Dead and padded agents are staged at a far sentinel so their pair terms
+underflow to exactly zero with no per-pair masking.  Semantics match
+ops/forces (same masking rule, same zero guards); tests compare the two
+in interpret mode, and chip_smoke.py compares them compiled on the card.
 """
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
 from ..models.params import MoussaidParams
 
@@ -41,12 +51,8 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-_PI = 3.14159265358979323846
-_PI_2 = _PI / 2.0
-
-
 #: smaller than any squared pedestrian distance of interest, large enough
-#: that rsqrt/div stay finite in f32 -- replaces where(x==0) guards
+#: that rsqrt stays finite in f32 -- replaces where(x==0) guards
 _TINY = 1e-35
 
 #: parking position for dead/padded agents: far enough that every mixed
@@ -54,332 +60,23 @@ _TINY = 1e-35
 #: sentinel-sentinel distances stay finite in f32
 _SENTINEL = 1.0e7
 
+#: warps per program and software-pipeline stages (Triton CompilerParams);
+#: tools/kernel_probe.py ``warps`` times the alternatives (PERF.md)
+_NUM_WARPS = 4
+_NUM_STAGES = 1
 
-#: minimax fit of atan(t)/t as a degree-7 polynomial in t^2 on t in [0, 1]
-#: (max |t*P(t^2) - atan(t)| = 7.5e-8, at the f32 ulp scale) -- no
-#: tan(pi/8) range reduction needed, which removes the numerator/
-#: denominator/quadrant-offset selects of the Cephes form
-_ATAN_C = (9.9999989775e-01, -3.3331959724e-01, 1.9969235395e-01,
-           -1.4016585042e-01, 9.9060968961e-02, -5.9367100789e-02,
-           2.4166189522e-02, -4.6687733076e-03)
-
-
-#: static-triangle-table size bound for the symmetric launch, in table
-#: entries: must fit SMEM alongside the bboxes (4 B/entry vs the 1 MB
-#: v5e SMEM) and stay out of the compiled program's constant budget (a
-#: 10M-entry table at N=1M measured a 74 MB MLIR remote-compile failure)
-_TRI_TABLE_MAX = 128 * 1024
-
-#: near-minimax fit of 2^f on [-0.5, 0.5], degree 6 (rel err 6.2e-9 -- below
-#: the f32 ulp), for the ALU exp below
-_EXP2_C = (9.9999999997e-01, 6.9314720007e-01, 2.4022651101e-01,
-           5.5503406681e-02, 9.6180399291e-03, 1.3395285365e-03,
-           1.5465318042e-04)
+#: survivor-list width of the compacted cutoff launch: row tiles list up to
+#: this many column tiles within the cutoff; the launch engages above
+#: twice as many column tiles and falls back to the in-loop skip when a
+#: row tile has more survivors
+_MAX_SURV = 128
 
 
-
-def _exp_alu(a):
-    """exp(a) computed entirely on the VPU's regular ALUs (no EUP op):
-    ``2^(a*log2e)`` via magic-number round-to-nearest, a degree-6 polynomial
-    for the fractional part, and exponent-field bit assembly.
-
-    The pairwise kernel is bound by the transcendental (EUP) port at ~2.1e11
-    ops/s with 5 EUP ops/pair (BENCH.md); this trades the kernel's 2 exp EUP
-    ops for ~13 ALU ops each, which co-issue with the EUP work.  Accuracy:
-    the polynomial is exact to f32, so the error is the classic exp-via-exp2
-    argument rounding, |a|*log2e*2^-24*ln2 relative -- <= 2.4e-6 at the
-    underflow edge |a|=87, ~1e-7 for the |a| <= 5 arguments that produce
-    non-negligible forces.
-
-    Matches ``jnp.exp`` at the domain edges: +0 below the f32 underflow
-    threshold (including the -inf masked pairs -- the kernel's liveness
-    masking relies on that exact zero) and 1.0 at 0.  Arguments here are
-    bounded above by ~radii/gamma (use_radius can make -d/B slightly
-    positive), far inside the clamp range.
-    """
-    y = a * 1.4426950408889634
-    # masked pairs arrive as a = -inf: the max() keeps the integer path
-    # defined (the final select restores their exact +0)
-    y = jnp.maximum(y, -150.0)
-    # round-to-nearest via a real floor op, NOT the (y + 1.5*2^23) - magic
-    # trick: XLA CPU's default fast-math reassociates the magic away inside
-    # compiled kernels (measured), silently degrading k to y
-    k = jnp.floor(y + 0.5)
-    f = y - k                                    # in [-0.5, 0.5]
-    p = _EXP2_C[6]
-    for c in _EXP2_C[5::-1]:
-        p = p * f + c
-    ki = jnp.maximum(k.astype(jnp.int32), -126)  # keep 2^k a normal f32
-    scale = jax.lax.bitcast_convert_type((ki + 127) << 23, jnp.float32)
-    return jnp.where(a < -87.3, 0.0, p * scale)
-
-
-def _recip_alu(x):
-    """Positive-argument reciprocal on the ALUs (no EUP op): exponent-flip
-    bit seed (~2^-5 relative) + two Newton steps (~2e-7, the hardware
-    approx+1-Newton path's scale).  Only valid for normal positive x; the
-    atan2 ratio argument is ``max(|x|, |y|) + tiny``, which qualifies."""
-    seed = jax.lax.bitcast_convert_type(
-        jnp.int32(0x7EF311C3) - jax.lax.bitcast_convert_type(x, jnp.int32),
-        jnp.float32)
-    seed = seed * (2.0 - x * seed)
-    return seed * (2.0 - x * seed)
-
-
-def _atan2(y, x, exact_div=False, alu_recip=False):
-    """Branchless division-free atan2 (Mosaic has no atan2 lowering):
-    t = min/max via hardware approximate reciprocal + one Newton step
-    (~1e-7 relative), atan(t) by the direct minimax polynomial, then the
-    three quadrant fixups.  Matches numpy conventions incl.
-    atan2(0, 0) = 0 and atan2(0, -x) = pi.
-
-    ``exact_div`` (StepConfig.pallas_exact_div): use a true division for the
-    ratio instead of the Newton-refined approximate reciprocal.
-    ``alu_recip``: compute the reciprocal on the regular ALUs (bit seed +
-    2 Newton steps) so the ratio costs no EUP op."""
-    ax = jnp.abs(x)
-    ay = jnp.abs(y)
-    hi = jnp.maximum(ax, ay) + _TINY    # hi==0 -> t=0 -> atan 0
-    lo = jnp.minimum(ax, ay)
-    if exact_div:
-        t = lo / hi
-    elif alu_recip:
-        t = lo * _recip_alu(hi)
-    else:
-        r0 = pl.reciprocal(hi, approx=True)
-        r0 = r0 * (2.0 - hi * r0)
-        t = lo * r0
-    z = t * t
-    p = _ATAN_C[7]
-    for c in _ATAN_C[6::-1]:
-        p = p * z + c
-    r = t * p
-    r = jnp.where(ay > ax, _PI_2 - r, r)
-    r = jnp.where(x < 0.0, _PI - r, r)
-    return jnp.where(y < 0.0, -r, r)
-
-
-def _pair_kernel(prm_ref, rbb_ref, cbb_ref,
-                 px_r, py_r, vx_r, vy_r, rad_r,
-                 px_c, py_c, vx_c, vy_c, rad_c,
-                 fx_ref, fy_ref, *, use_radius, tr, tc, cutoff,
-                 exact_div, alu_exp, alu_recip, law="moussaid"):
-    # prm/rbb/cbb are scalar-prefetch args (full arrays in SMEM); force
-    # parameters ride in prm so they may be traced (vmap sweeps).
-    # Liveness is pre-staged: dead/padded agents sit at a far sentinel, so
-    # their pair interactions underflow to zero without any masking ops;
-    # self-pairs (and all coincident pairs) mask through d2 == 0.
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
-
-    if cutoff is not None:
-        # skip tile pairs whose bounding boxes are farther than the cutoff
-        # (agents are Morton-sorted so boxes are tight; empty tiles carry
-        # inverted infinite boxes and always skip)
-        # bboxes ride transposed, (4, n_tiles): the lane dim should be the
-        # large one in SMEM just like VMEM ((n_tiles, 4) pads 4 -> 128)
-        gx = jnp.maximum(jnp.maximum(cbb_ref[0, j] - rbb_ref[1, i],
-                                     rbb_ref[0, i] - cbb_ref[1, j]), 0.0)
-        gy = jnp.maximum(jnp.maximum(cbb_ref[2, j] - rbb_ref[3, i],
-                                     rbb_ref[2, i] - cbb_ref[3, j]), 0.0)
-        run_tile = gx * gx + gy * gy <= cutoff * cutoff
-    else:
-        run_tile = True
-
-    tile = _tile_fn(law, prm_ref, use_radius=use_radius, tr=tr, tc=tc,
-                    cutoff=cutoff, exact_div=exact_div, alu_exp=alu_exp,
-                    alu_recip=alu_recip)
-
-    @pl.when(run_tile)
-    def _compute():
-        tile(px_r[...], py_r[...], vx_r[...], vy_r[...], rad_r[...],
-             px_c[...], py_c[...], vx_c[...], vy_c[...], rad_c[...],
-             fx_ref, fy_ref)
-
-
-def _pair_kernel_compact(prm_ref, rbb_ref, cbb_ref, surv_ref,
-                         px_r, py_r, vx_r, vy_r, rad_r,
-                         px_c, py_c, vx_c, vy_c, rad_c,
-                         fx_ref, fy_ref, *, use_radius, tr, tc, cutoff,
-                         exact_div, alu_exp, alu_recip, law="moussaid"):
-    """Compacted-grid pair kernel: grid slot (i, j) computes row tile i
-    against its j-th SURVIVING column tile (``surv_ref[i, j]``, built per
-    step by :func:`_bbox_hits` + ``spatial.surv_table``; -1 pads rows with
-    fewer survivors).  Column blocks arrive through a surv-indexed index
-    map, so skipped tiles are never fetched; the per-pair cutoff inside
-    :func:`_pair_tile` keeps the semantics exact regardless of the table."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
-
-    tile = _tile_fn(law, prm_ref, use_radius=use_radius, tr=tr, tc=tc,
-                    cutoff=cutoff, exact_div=exact_div, alu_exp=alu_exp,
-                    alu_recip=alu_recip)
-
-    # the table rides transposed, (max_surv, n_row_tiles): SMEM pads the
-    # minor dim to 128 lanes just like VMEM, and n_row_tiles is the large
-    # dimension (a (n_row_tiles, max_surv) table at N=1M is ~1 MB of
-    # padding -- the whole v5e SMEM)
-    @pl.when(surv_ref[j, i] >= 0)
-    def _compute():
-        tile(px_r[...], py_r[...], vx_r[...], vy_r[...], rad_r[...],
-             px_c[...], py_c[...], vx_c[...], vy_c[...], rad_c[...],
-             fx_ref, fy_ref)
-
-
-def _pair_kernel_sym(prm_ref, rbb_ref, cbb_ref, surv_ref,
-                     px_r, py_r, vx_r, vy_r, rad_r,
-                     px_c, py_c, vx_c, vy_c, rad_c,
-                     fx_ref, fy_ref, fxc_ref, fyc_ref, *,
-                     use_radius, tr, tc, cutoff, exact_div, alu_exp,
-                     alu_recip, law="moussaid"):
-    """Newton's-third-law pair kernel: each unordered pair is computed ONCE.
-
-    The Moussaid pair force is exactly antisymmetric (f_ji == -f_ij in f32:
-    every intermediate is sign-exact under the i<->j swap -- diff, dv and t
-    negate exactly, d2/t2/cross/dot/theta/B are invariant), so the kernel
-    walks only tile pairs that contain some col_gid > row_gid (the ``surv``
-    table -- static upper-triangle for the dense launch, bbox-hits ANDed
-    with the triangle for the compacted cutoff launch), masks pairs at or
-    below the diagonal, and accumulates each pair's force twice: +f into
-    the row block (revisited per row tile, as the dense kernel does) and
-    -f into a ``(1, n_cols)`` column accumulator that lives in VMEM for the
-    whole launch (constant-index output block).  Halves the pairwise
-    EUP+ALU work; the result equals the dense kernel up to f32 summation
-    order.  Single-device / all-gathered columns only (a remote row cannot
-    be accumulated locally).
-    """
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
-
-    @pl.when((i == 0) & (j == 0))
-    def _():
-        fxc_ref[...] = jnp.zeros_like(fxc_ref)
-        fyc_ref[...] = jnp.zeros_like(fyc_ref)
-
-    tile = _tile_fn(law, prm_ref, use_radius=use_radius, tr=tr, tc=tc,
-                    cutoff=cutoff, exact_div=exact_div, alu_exp=alu_exp,
-                    alu_recip=alu_recip)
-
-    jj = surv_ref[j, i]
-    run = jj >= 0
-    if cutoff is not None:
-        # bbox skip for the static-triangle launch (the compacted launch
-        # pre-filtered, in which case this re-test is always true)
-        gx = jnp.maximum(jnp.maximum(cbb_ref[0, jj] - rbb_ref[1, i],
-                                     rbb_ref[0, i] - cbb_ref[1, jj]), 0.0)
-        gy = jnp.maximum(jnp.maximum(cbb_ref[2, jj] - rbb_ref[3, i],
-                                     rbb_ref[2, i] - cbb_ref[3, jj]), 0.0)
-        run = run & (gx * gx + gy * gy <= cutoff * cutoff)
-
-    @pl.when(run)
-    def _compute():
-        tile(px_r[...], py_r[...], vx_r[...], vy_r[...], rad_r[...],
-             px_c[...], py_c[...], vx_c[...], vy_c[...], rad_c[...],
-             fx_ref, fy_ref, sym=(i * tr, jj * tc, fxc_ref, fyc_ref))
-
-
-def _pair_kernel_sym_dense(prm_ref, rbb_ref, cbb_ref,
-                           px_r, py_r, vx_r, vy_r, rad_r,
-                           px_c, py_c, vx_c, vy_c, rad_c,
-                           fx_ref, fy_ref, fxc_ref, fyc_ref, *,
-                           use_radius, tr, tc, cutoff, exact_div, alu_exp,
-                           alu_recip, law="moussaid"):
-    """Symmetric-accumulation kernel over a FULL block: every pair is
-    computed once, +f into the row output and -f into the launch-resident
-    ``(1, n_cols)`` column accumulators.  This is the off-diagonal step of
-    the half-ring schedule (:func:`pedestrian_force_pallas` ``axis_comm=
-    "ring"`` + ``symmetric``): row and column agents belong to *different*
-    shards, so no triangle mask applies -- the whole block is one-sided.
-    Grid/skip semantics otherwise match :func:`_pair_kernel`."""
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        fx_ref[...] = jnp.zeros_like(fx_ref)
-        fy_ref[...] = jnp.zeros_like(fy_ref)
-
-    @pl.when((i == 0) & (j == 0))
-    def _():
-        fxc_ref[...] = jnp.zeros_like(fxc_ref)
-        fyc_ref[...] = jnp.zeros_like(fyc_ref)
-
-    if cutoff is not None:
-        gx = jnp.maximum(jnp.maximum(cbb_ref[0, j] - rbb_ref[1, i],
-                                     rbb_ref[0, i] - cbb_ref[1, j]), 0.0)
-        gy = jnp.maximum(jnp.maximum(cbb_ref[2, j] - rbb_ref[3, i],
-                                     rbb_ref[2, i] - cbb_ref[3, j]), 0.0)
-        run_tile = gx * gx + gy * gy <= cutoff * cutoff
-    else:
-        run_tile = True
-
-    tile = _tile_fn(law, prm_ref, use_radius=use_radius, tr=tr, tc=tc,
-                    cutoff=cutoff, exact_div=exact_div, alu_exp=alu_exp,
-                    alu_recip=alu_recip)
-
-    @pl.when(run_tile)
-    def _compute():
-        # row_gid0 far below any col_gid -> the triangle mask inside
-        # the tile function is vacuously true (full block, no diagonal)
-        tile(px_r[...], py_r[...], vx_r[...], vy_r[...], rad_r[...],
-             px_c[...], py_c[...], vx_c[...], vy_c[...], rad_c[...],
-             fx_ref, fy_ref, sym=(-(1 << 30), j * tc, fxc_ref, fyc_ref))
-
-
-def _triangle_table(n_row_tiles: int, n_col_tiles: int, tr: int, tc: int):
-    """Static (max_surv, n_row_tiles) upper-triangle launch table for the
-    symmetric kernel: row tile i's surviving column tiles are those that
-    contain any col_gid > row_gid, i.e. j*tc + tc - 1 > i*tr.  numpy
-    (trace-time constant); -1-padded like ``spatial.surv_table``."""
-    import numpy as np
-    # smallest j with j*tc + tc - 1 > i*tr  <=>  j >= ceil((i*tr+2-tc)/tc)
-    # = floor((i*tr + 1) / tc)
-    first = (np.arange(n_row_tiles) * tr + 1) // tc
-    first = np.minimum(first, n_col_tiles)          # rows past all columns
-    width = int((n_col_tiles - first).max()) if n_row_tiles else 0
-    tbl = first[:, None] + np.arange(max(width, 1))[None, :]
-    tbl = np.where(tbl < n_col_tiles, tbl, -1).astype(np.int32)
-    return tbl.T  # transposed for SMEM (see _pair_kernel_compact)
-
-
-def _bbox_hits(row_bb, col_bb, cutoff: float):
-    """(R, C) bool: is the gap between row tile i's and column tile j's
-    bounding boxes within the cutoff?  The jnp twin of the in-kernel test
-    in :func:`_pair_kernel` (same transposed (4, n_tiles) box layout and
-    empty-tile semantics: inverted infinite boxes never hit), evaluated
-    once per step to build the compacted grid."""
-    gx = jnp.maximum(jnp.maximum(col_bb[0][None, :] - row_bb[1][:, None],
-                                 row_bb[0][:, None] - col_bb[1][None, :]),
-                     0.0)
-    gy = jnp.maximum(jnp.maximum(col_bb[2][None, :] - row_bb[3][:, None],
-                                 row_bb[2][:, None] - col_bb[3][None, :]),
-                     0.0)
-    return gx * gx + gy * gy <= cutoff * cutoff
-
-
-def _pair_tile(xi, yi, vxi, vyi, rad_r,
-               xj, yj, vxj, vyj, rad_c,
-               fx_ref, fy_ref, *, lam, A, gamma, n, n_prime, epsilon,
-               use_radius, tr, tc, cutoff, exact_div, alu_exp=False,
-               alu_recip=False, sym=None):
-    # row vectors are (TR, 1) arrays, column vectors (1, TC) arrays: the
-    # broadcast to (TR, TC) needs no sublane<->lane relayout in the kernel
-    dx = xj - xi                       # (TR, TC), x_j - x_i
+def _pair_tile(xi, yi, vxi, vyi, rad_r, xj, yj, vxj, vyj, rad_c, *,
+               lam, A, gamma, n, n_prime, epsilon, use_radius, cutoff):
+    """Moussaid (2009) pair block: ``(TR, 1)`` rows x ``(1, TC)`` columns
+    -> ``(fx, fy)`` of shape (TR, TC) (force on row agent i from j)."""
+    dx = xj - xi                       # x_j - x_i
     dy = yj - yi
     d2 = dx * dx + dy * dy
     r = jax.lax.rsqrt(d2 + _TINY)
@@ -397,90 +94,48 @@ def _pair_tile(xi, yi, vxi, vyi, rad_r,
     rt = jax.lax.rsqrt(t2 + _TINY)
     t_len = t2 * rt
 
-    # theta from the *unnormalized* t (atan2 is scale-invariant): saves
-    # building the unit vector before the angle.  B = gamma*t_len is never
-    # materialized: the evasion shift folds into the -epsilon*gamma scalar
-    # and the Gaussian widths into (n*gamma)^2 / (n_prime*gamma)^2 scalars
-    # applied to u^2 = (t_len*theta)^2.
+    # theta from the *unnormalized* t (atan2 is scale-invariant); B =
+    # gamma*t_len is never materialized: the evasion shift folds into the
+    # -epsilon*gamma scalar and the Gaussian widths into (n*gamma)^2 /
+    # (n_prime*gamma)^2 applied to u^2 = (t_len*theta)^2
     cross = tx * ey - ty * ex
     dot = ex * tx + ey * ty
-    theta = (_atan2(cross, dot, exact_div=exact_div, alu_recip=alu_recip)
-             + (-epsilon * gamma) * t_len)
+    theta = jnp.arctan2(cross, dot) + (-epsilon * gamma) * t_len
 
-    # mask: coincident pairs (self pair, dead-dead sentinel pairs, and
-    # exactly-coincident live pairs -- all NaN in the reference, documented
-    # as zero here) are exactly the d2 == 0 pairs.  Everything else zeroes
-    # naturally: dead-live pairs underflow through the sentinel distance,
-    # and B == 0 (zero interaction vector at d > 0) drives common to -inf
-    # through rt = rsqrt(tiny).  One compare, no index bookkeeping.
+    # coincident pairs (self, dead-dead sentinels, exactly coincident live
+    # agents -- NaN in the reference, zero here) are exactly d2 == 0;
+    # dead-live pairs underflow through the sentinel distance, and B == 0
+    # drives common to -inf through rt = rsqrt(tiny)
     ok = d2 > 0.0
-    if sym is not None:
-        # Newton's-third-law mode (_pair_kernel_sym): compute each unordered
-        # pair once -- only pairs strictly above the diagonal
-        row_gid0, col_gid0, _, _ = sym
-        row_gid = row_gid0 + jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0)
-        col_gid = col_gid0 + jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1)
-        ok = ok & (col_gid > row_gid)
     if use_radius:
-        # with radii subtracted, d can be negative while t2 == 0 (zero
-        # interaction vector): common would be +inf -> exp overflow -> NaN,
-        # so the B > 0 condition must be masked explicitly here (without
-        # radii, d > 0 whenever d2 > 0 and exp underflows on its own)
+        # with radii subtracted d can be negative while t2 == 0: mask
+        # B > 0 explicitly (exp(+inf) * 0 would be NaN)
         ok = ok & (t2 > 0.0)
     if cutoff is not None:
-        # per-pair cutoff makes the result independent of tile layout:
-        # force = sum over pairs within the cutoff radius, exactly
         ok = ok & (d2 <= cutoff * cutoff)
 
-    # common = -d/B = -d * rt / gamma: rt == 1/|t|, so no division at all
     common = jnp.where(ok, d * rt * (-1.0 / gamma), -jnp.inf)
     u2 = jnp.square(t_len * theta)
-    exp = _exp_alu if alu_exp else jnp.exp
-    f_v = -A * exp(common - jnp.square(n_prime * gamma) * u2)
-    # sign(theta) must be exact (sign(0) = 0): theta == 0 is NOT
-    # measure-zero when epsilon is configured to 0 (every equal-velocity
-    # pair), and the reference emits no tangential force there
-    f_t = (-A * jnp.sign(theta)) * exp(common - jnp.square(n * gamma) * u2)
-
-    # f = f_v * t_hat + f_t * left_normal(t_hat); fold the 1/|t| of the
-    # unit vector into the magnitudes
+    f_v = -A * jnp.exp(common - jnp.square(n_prime * gamma) * u2)
+    # sign(theta) must be exact (sign(0) = 0): with epsilon = 0 every
+    # equal-velocity pair has theta == 0 and the reference emits no
+    # tangential force there
+    f_t = (-A * jnp.sign(theta)) * jnp.exp(common - jnp.square(n * gamma) * u2)
+    # f = f_v * t_hat + f_t * left_normal(t_hat), 1/|t| folded in
     f_v = f_v * rt
     f_t = f_t * rt
-    fx = f_v * tx - f_t * ty
-    fy = f_v * ty + f_t * tx
-    fx_ref[...] += jnp.sum(fx, axis=1, keepdims=True)
-    fy_ref[...] += jnp.sum(fy, axis=1, keepdims=True)
-    if sym is not None:
-        # the mirrored (j, i) pairs: f_ji == -f_ij exactly, accumulated into
-        # the launch-resident (1, n_cols) column block at this tile's offset
-        _, col_gid0, fxc_ref, fyc_ref = sym
-        idx = (slice(None), pl.ds(col_gid0, tc))
-        fxc_ref[idx] -= jnp.sum(fx, axis=0, keepdims=True)
-        fyc_ref[idx] -= jnp.sum(fy, axis=0, keepdims=True)
+    return f_v * tx - f_t * ty, f_v * ty + f_t * tx
 
 
-def _pair_tile_powerlaw(xi, yi, vxi, vyi, rad_r,
-                        xj, yj, vxj, vyj, rad_c,
-                        fx_ref, fy_ref, *, k, tau0, tau_max, tau_min,
-                        use_radius, tr, tc, cutoff, exact_div,
-                        alu_exp=False, alu_recip=False, sym=None):
-    """Karamouzas et al. (2014) time-to-collision power-law pair tile (the
-    ``law="powerlaw"`` model family; see ops/forces._powerlaw_pair_force
-    for the math and models/params.PowerLawParams for the parameters).
-
-    Same (TR, 1) x (1, TC) broadcast layout and ``sym`` Newton's-third-law
-    contract as :func:`_pair_tile` (the power-law force is antisymmetric
-    sign-exactly: a/b/c/disc/tau are bit-invariant under the i<->j swap and
-    the force vector negates exactly).  Masking is explicit (the law is
-    gated on collision-course conditions, not exponential underflow):
-    dead/padded sentinels mask through tau > tau_max (live-dead) and
-    c <= 0 with zero staged radii (dead-dead/self/coincident pairs).
-    Disc radii always participate; ``use_radius``/``exact_div``/``alu_*``
-    are accepted for kernel-signature parity and ignored.
-    EUP cost: 1 rsqrt + 1 exp + 2 reciprocal per pair (vs Moussaid's 5).
-    """
-    del use_radius, exact_div, alu_exp, alu_recip
-    xx = xi - xj                       # (TR, TC), x_i - x_j
+def _pair_tile_powerlaw(xi, yi, vxi, vyi, rad_r, xj, yj, vxj, vyj, rad_c, *,
+                        k, tau0, tau_max, tau_min, use_radius, cutoff):
+    """Karamouzas et al. (2014) time-to-collision pair block (see
+    ops/forces._powerlaw_pair_force).  Disc radii always participate;
+    ``use_radius`` is accepted for signature parity.  Dead/padded
+    sentinels mask through tau > tau_max (live-dead) and c <= 0 with zero
+    staged radii (dead-dead, self, coincident)."""
+    del use_radius
+    xx = xi - xj                       # x_i - x_j
     xy = yi - yj
     vx = vxi - vxj                     # v_i - v_j
     vy = vyi - vyj
@@ -493,65 +148,34 @@ def _pair_tile_powerlaw(xi, yi, vxi, vyi, rad_r,
     ok = (c > 0.0) & (disc > 0.0) & (a > 1e-8)
     if cutoff is not None:
         ok = ok & (d2 <= cutoff * cutoff)
-    if sym is not None:
-        row_gid0, col_gid0, _, _ = sym
-        row_gid = row_gid0 + jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0)
-        col_gid = col_gid0 + jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1)
-        ok = ok & (col_gid > row_gid)
 
     rs = jax.lax.rsqrt(jnp.where(ok, disc, 1.0))
     s = disc * rs                      # sqrt(disc), 0-safe via the mask
     a_safe = jnp.where(ok, a, 1.0)
-    ra = pl.reciprocal(a_safe, approx=True)
-    ra = ra * (2.0 - a_safe * ra)      # 1 Newton step (~1e-7 rel)
+    ra = 1.0 / a_safe
     tau = (-b - s) * ra
     ok = ok & (tau > 0.0) & (tau < tau_max)
     tau = jnp.clip(tau, tau_min, tau_max)
-    rtau = pl.reciprocal(tau, approx=True)
-    rtau = rtau * (2.0 - tau * rtau)
-    inv_tau0 = 1.0 / tau0              # scalar
+    rtau = 1.0 / tau
+    inv_tau0 = 1.0 / tau0
     mag = (k * jnp.exp(-tau * inv_tau0)) * ((2.0 * rtau + inv_tau0)
                                             * (rtau * rtau))
     scale = jnp.where(ok, mag * ra * rs, 0.0)
     sb = s + b
-    fx = scale * (a * xx - sb * vx)
-    fy = scale * (a * xy - sb * vy)
-    fx_ref[...] += jnp.sum(fx, axis=1, keepdims=True)
-    fy_ref[...] += jnp.sum(fy, axis=1, keepdims=True)
-    if sym is not None:
-        _, col_gid0, fxc_ref, fyc_ref = sym
-        idx = (slice(None), pl.ds(col_gid0, tc))
-        fxc_ref[idx] -= jnp.sum(fx, axis=0, keepdims=True)
-        fyc_ref[idx] -= jnp.sum(fy, axis=0, keepdims=True)
+    return scale * (a * xx - sb * vx), scale * (a * xy - sb * vy)
 
 
-def _pair_tile_helbing(xi, yi, exi, eyi, rad_r,
-                       xj, yj, vxj, vyj, rad_c,
-                       fx_ref, fy_ref, *, v0, sigma, cos_phi, fov_factor,
-                       dt_w, b_min, use_radius, tr, tc, cutoff, exact_div,
-                       alu_exp=False, alu_recip=False, sym=None):
-    """Helbing-Molnar (1995) elliptical-repulsion pair tile (the
-    ``law="helbing"`` model family; see ops/forces.ped_repulsive_force for
-    the math and models/params.PedRepulsiveParams for the parameters).
-
-    The law reads the partner's velocity but never the pedestrian's own
-    (the ellipse anticipates the PARTNER's step ``y = dt_w * v_j``), and it
-    needs the pedestrian's desired direction ``e_i`` for the field-of-view
-    modulation -- so the ROW velocity planes carry ``e_i`` instead of
-    ``v_i`` (staged by :func:`pedestrian_force_pallas` ``desired=...``)
-    while the column planes carry the real ``v_j``.  Same (TR, 1) x
-    (1, TC) broadcast layout as :func:`_pair_tile`.
-
-    NOT antisymmetric (b depends on ``v_j`` only; swapping i<->j changes
-    the ellipse), so the Newton's-third-law ``sym`` contract does not
-    apply -- :func:`pedestrian_force_pallas` forces ``symmetric=False``
-    for this law.  EUP cost: 4 rsqrt + 1 exp per pair.
-    """
-    del use_radius, exact_div, alu_exp, alu_recip
-    if sym is not None:
-        raise ValueError("law='helbing' is not antisymmetric; symmetric "
-                         "launches do not apply")
-    dx = xi - xj                       # (TR, TC), d = r_i - r_j
+def _pair_tile_helbing(xi, yi, exi, eyi, rad_r, xj, yj, vxj, vyj, rad_c, *,
+                       v0, sigma, cos_phi, fov_factor, dt_w, b_min,
+                       use_radius, cutoff):
+    """Helbing-Molnar (1995) elliptical-repulsion pair block (see
+    ops/forces.ped_repulsive_force).  The law reads the partner's velocity
+    but never the pedestrian's own, and needs the pedestrian's desired
+    direction ``e_i`` for the field-of-view weight -- so the ROW velocity
+    planes carry ``e_i`` (staged by :func:`pedestrian_force_pallas`
+    ``desired=...``) while the column planes carry the real ``v_j``."""
+    del use_radius, rad_r, rad_c
+    dx = xi - xj                       # d = r_i - r_j
     dy = yi - yj
     yx = dt_w * vxj                    # partner's anticipated step
     yy = dt_w * vyj
@@ -561,54 +185,41 @@ def _pair_tile_helbing(xi, yi, exi, eyi, rad_r,
     m2 = mx * mx + my * my
     rd = jax.lax.rsqrt(d2 + _TINY)
     rm = jax.lax.rsqrt(m2 + _TINY)
-    nd = d2 * rd
-    nm = m2 * rm
-    s = nd + nm
+    s = d2 * rd + m2 * rm
     y2 = yx * yx + yy * yy
     b2 = jnp.maximum(s * s - y2, 0.0) * 0.25
     rb = jax.lax.rsqrt(b2 + _TINY)
     b = b2 * rb                        # ellipse semi-minor axis
 
-    # mask: self/coincident/dead-dead sentinel pairs (d2 == 0) and
-    # degenerate geometry (b == 0: partner steps exactly through the
-    # pedestrian), matching ops/forces.ped_repulsive_force's ok mask.
-    # Dead-live pairs zero naturally: the sentinel distance underflows the
-    # exp (positions stay < ~1e6 m, so b/sigma > 3e6 >> 88).
+    # self/coincident/dead-dead pairs (d2 == 0) and degenerate geometry
+    # (b == 0) are masked, matching ops/forces.ped_repulsive_force;
+    # dead-live pairs underflow through the sentinel distance
     ok = (d2 > 0.0) & (m2 > 0.0) & (b2 > 0.0)
     if cutoff is not None:
         ok = ok & (d2 <= cutoff * cutoff)
 
-    # b_min floor (see PedRepulsiveParams.b_min / ops/forces.
-    # _helbing_pair_force): b cancels to 0 for the equal-speed follower
-    # geometry where s/(4b) is unbounded; bc = max(b, b_min) and
-    # 1/bc = min(1/b, 1/b_min) reuse the rsqrt already computed
+    # b_min floor (PedRepulsiveParams.b_min): 1/max(b, b_min) reuses rb
     bc = jnp.maximum(b, b_min)
     rbc = jnp.minimum(rb, 1.0 / b_min)
-
-    # -grad_d V scaled: grad = (s / 4b) * (d/nd + dmy/ndmy); fold the unit
-    # vectors' reciprocals via the rsqrts already computed
     gx = dx * rd + mx * rm
     gy = dy * rd + my * rm
     mag = jnp.where(ok, (v0 / sigma) * jnp.exp(-bc * (1.0 / sigma))
                     * (0.25 * s * rbc), 0.0)
-    fx = mag * gx
-    fy = mag * gy
 
-    # field-of-view modulation (Helbing eq. 7): the source j is "seen" when
-    # -f (from i toward j's influence) lies within +-phi of e_i; -f and
-    # -grad are positive multiples, so the test uses grad directly
+    # field-of-view modulation (Helbing eq. 7): -f and -grad are positive
+    # multiples, so the test uses grad directly
     g2 = gx * gx + gy * gy
     gn = g2 * jax.lax.rsqrt(g2 + _TINY)
     seen = -(exi * gx + eyi * gy) >= gn * cos_phi
-    w = jnp.where(seen, 1.0, fov_factor)
-    fx_ref[...] += jnp.sum(w * fx, axis=1, keepdims=True)
-    fy_ref[...] += jnp.sum(w * fy, axis=1, keepdims=True)
+    w = jnp.where(seen, mag, fov_factor * mag)
+    return w * gx, w * gy
 
 
 def _tile_fn(law, prm_ref, **kw):
-    """Bind the per-law tile function to its scalar-prefetch parameters.
-    All pair kernels go through this, so a new pair-force law needs only a
-    tile function and a :func:`_params_vec` entry."""
+    """Bind the per-law pair block to its parameters (loaded from the
+    ``prm`` vector, so they may be traced -- vmapped parameter sweeps keep
+    the kernel).  A new pair law needs a block function here and a
+    :func:`_params_vec` entry."""
     if law == "powerlaw":
         return functools.partial(
             _pair_tile_powerlaw, k=prm_ref[0], tau0=prm_ref[1],
@@ -623,89 +234,141 @@ def _tile_fn(law, prm_ref, **kw):
         n=prm_ref[3], n_prime=prm_ref[4], epsilon=prm_ref[5], **kw)
 
 
+def _pair_kernel(prm_ref, rbb_ref, cbb_ref, *refs, law, tc, n_col_tiles,
+                 use_radius, cutoff, compact):
+    """One row-tile program: loop over the column tiles, accumulating the
+    row forces in registers.
+
+    ``compact``: two leading refs carry the survivor list ``(R, W)`` and
+    count ``(R,)``; the program walks the row tile's surviving column
+    tiles instead of testing every tile's bounding box."""
+    if compact:
+        surv_ref, cnt_ref, *refs = refs
+    (rx_ref, ry_ref, rvx_ref, rvy_ref, rrad_ref,
+     cx_ref, cy_ref, cvx_ref, cvy_ref, crad_ref, fx_ref, fy_ref) = refs
+    i = pl.program_id(0)
+    rows = [r[...][:, None] for r in (rx_ref, ry_ref, rvx_ref, rvy_ref,
+                                      rrad_ref)]
+    tile = _tile_fn(law, prm_ref, use_radius=use_radius, cutoff=cutoff)
+    zero = jnp.zeros(rx_ref.shape, jnp.float32)
+
+    def tile_sum(j, acc):
+        start = pl.multiple_of(j * tc, tc)
+        cols = [c[pl.ds(start, tc)][None, :]
+                for c in (cx_ref, cy_ref, cvx_ref, cvy_ref, crad_ref)]
+        fx, fy = tile(*rows, *cols)
+        return acc[0] + jnp.sum(fx, axis=1), acc[1] + jnp.sum(fy, axis=1)
+
+    if compact:
+        fx, fy = jax.lax.fori_loop(
+            0, cnt_ref[i], lambda jj, acc: tile_sum(surv_ref[i, jj], acc),
+            (zero, zero))
+    else:
+        step = tile_sum
+        if cutoff is not None:
+            # tile bboxes ride as (4, n_tiles) planes: minx, maxx, miny,
+            # maxy; empty tiles carry inverted infinite boxes, always skip
+            rminx, rmaxx, rminy, rmaxy = (rbb_ref[k, i] for k in range(4))
+
+            def step(j, acc):
+                gx = jnp.maximum(jnp.maximum(cbb_ref[0, j] - rmaxx,
+                                             rminx - cbb_ref[1, j]), 0.0)
+                gy = jnp.maximum(jnp.maximum(cbb_ref[2, j] - rmaxy,
+                                             rminy - cbb_ref[3, j]), 0.0)
+                return jax.lax.cond(gx * gx + gy * gy <= cutoff * cutoff,
+                                    lambda: tile_sum(j, acc), lambda: acc)
+
+        fx, fy = jax.lax.fori_loop(0, n_col_tiles, step, (zero, zero))
+    fx_ref[...] = fx
+    fy_ref[...] = fy
+
+
+def _slab_call(prm, row_planes, row_bb, col_planes, col_bb, *, law, tr, tc,
+               use_radius, cutoff, interpret, surv=None):
+    """One launch over a (n_rows x n_cols) slab of staged state; returns
+    the ``(fx, fy)`` row sums, shape (n_rows,) each.  ``surv``: optional
+    ``(survivor list, count)`` of the compacted cutoff launch."""
+    n_rows = row_planes[0].shape[0]
+
+    def whole(a):
+        return pl.BlockSpec(a.shape, lambda i: (0,) * a.ndim)
+
+    row_spec = pl.BlockSpec((tr,), lambda i: (i,))
+    kernel = functools.partial(
+        _pair_kernel, law=law, tc=tc,
+        n_col_tiles=col_planes[0].shape[0] // tc, use_radius=use_radius,
+        cutoff=float(cutoff) if cutoff is not None else None,
+        compact=surv is not None)
+    extra = list(surv) if surv is not None else []
+    return pl.pallas_call(
+        kernel,
+        grid=(n_rows // tr,),
+        in_specs=([whole(prm), whole(row_bb), whole(col_bb)]
+                  + [whole(a) for a in extra]
+                  + [row_spec] * 5 + [whole(c) for c in col_planes]),
+        out_specs=(row_spec, row_spec),
+        out_shape=(jax.ShapeDtypeStruct((n_rows,), jnp.float32),) * 2,
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=_NUM_WARPS,
+                                            num_stages=_NUM_STAGES),
+        interpret=interpret,
+        name=f"pair_force_{law}",
+    )(prm, row_bb, col_bb, *extra, *row_planes, *col_planes)
+
+
 def pedestrian_force_pallas(pos, vel, radius, alive, p: MoussaidParams,
-                            use_ped_radius: bool = False, row_tile: int = 512,
-                            col_tile: int = 1024, interpret: bool = False,
+                            use_ped_radius: bool = False, row_tile: int = 32,
+                            col_tile: int = 32, interpret: bool = False,
                             axis_name: str | None = None,
                             cutoff: float | None = None,
                             axis_comm: str = "gather",
                             planar_out: bool = False,
-                            exact_div: bool = False,
-                            alu_exp: bool = False,
-                            alu_recip: bool = False,
-                            vmem_mb: int = 32,
-                            compact: bool = False,
-                            max_surv: int = 0,
-                            symmetric: bool = False,
                             law: str = "moussaid",
                             desired=None):
-    """Drop-in replacement for ops.forces.pedestrian_force.
+    """Drop-in replacement for ops.forces.pedestrian_force (and its
+    power-law / Helbing twins through ``law``).
 
-    ``law``: the pair-force model family -- ``"moussaid"`` (the reference's
-    force, default), ``"powerlaw"`` (Karamouzas et al. 2014 time-to-
-    collision law, ops/forces.powerlaw_force; ``p`` is then a
-    PowerLawParams and disc radii always participate), or ``"helbing"``
-    (Helbing-Molnar 1995 elliptical repulsion with field-of-view,
-    ops/forces.ped_repulsive_force; ``p`` is a PedRepulsiveParams and
-    ``desired`` -- planar ``(ex, ey)`` unit desired directions -- is
-    required: the law's row planes carry ``e_i`` in the velocity slots,
-    see :func:`_pair_tile_helbing`).  Moussaid and powerlaw are exactly
-    antisymmetric, so every launch mode incl. ``symmetric`` composes;
-    helbing is NOT (the ellipse anticipates the partner's step), so
-    ``symmetric`` is ignored for it.
+    ``law``: ``"moussaid"`` (default), ``"powerlaw"`` (``p`` is a
+    PowerLawParams; disc radii always participate) or ``"helbing"`` (``p``
+    is a PedRepulsiveParams and ``desired`` -- planar ``(ex, ey)`` unit
+    desired directions -- is required).
 
-    Force parameters ship to the kernel as scalar-prefetch values, so ``p``'s
-    leaves may be traced -- parameter sweeps can vmap over them and keep the
-    fused kernel (only ``cutoff`` and ``use_ped_radius`` are compile-time).
+    Force parameters enter the kernel as a small array, so ``p``'s leaves
+    may be traced (parameter sweeps vmap over them); only ``cutoff`` and
+    ``use_ped_radius`` are compile-time.
 
-    With ``axis_name`` (under shard_map with rows sharded over that mesh
-    axis), the column state is communicated over ICI per ``axis_comm``:
+    ``row_tile``/``col_tile`` must be powers of two (Triton block shapes).
 
-    * ``"gather"``: all-gather the full column state, one kernel launch over
-      the (local rows x global cols) slab -- lowest latency at small N.
-    * ``"ring"``: rotate one shard-sized column block around the ring with
-      ``ppermute`` and accumulate partial forces block by block -- peak
-      memory O(N/devices) instead of O(N), and XLA's async collective
-      permute overlaps each transfer with the previous block's kernel.
+    With ``axis_name`` (under shard_map, rows sharded over that mesh axis)
+    the column state is communicated per ``axis_comm``:
 
-    ``cutoff`` (meters): pairs farther apart contribute zero and tile pairs
-    whose bounding boxes exceed the cutoff are skipped entirely.  Combine
-    with Morton sorting (:func:`pedestrian_force_pallas_sorted`) for tight
-    boxes.  A cutoff >= 110 * gamma * (2*lambda*v_max + 1) is f32-exact
-    (the skipped exp underflows to +0); smaller values truncate the
-    interaction range (error per skipped pair <= A*exp(-cutoff/B_max)).
-    Under sharding, per-tile bounding boxes ride around the ring with their
-    blocks, so spatially distant shard pairs skip all their tiles.
+    * ``"gather"``: all-gather the full column state, one launch over the
+      (local rows x global cols) slab;
+    * ``"ring"``: rotate one shard-sized column block around the ring
+      with ``ppermute`` and accumulate partial forces block by block --
+      peak memory O(N/devices), and the next block's transfer overlaps
+      this block's kernel.
 
-    ``compact`` (requires a cutoff): evaluate the tile-pair bbox hit matrix
-    in jnp each step and launch the kernel grid over only the surviving
-    column tiles per row tile (a scalar-prefetch survivor table drives the
-    column index map), with a ``lax.cond`` dense-grid fallback whenever any
-    row tile exceeds ``max_surv`` survivors (0 = auto) -- semantics are
-    always exact and results match the dense grid bitwise (same ascending
-    accumulation order).  Pays off when most tile pairs are beyond the
-    cutoff (large N / large worlds); applies to the single-device and
-    ``"gather"`` paths (the ring paths rotate column blocks, so their grid
-    is already shard-sized).
+    ``cutoff`` (meters): pairs farther apart contribute zero and column
+    tiles whose bounding boxes are farther than the cutoff from the row
+    tile are never computed (survivor lists above 2 * _MAX_SURV column
+    tiles, the in-loop skip below or on overflow; the ring path always
+    skips in the loop).  Combine with the locality sort
+    (:func:`pedestrian_force_pallas_sorted`) for tight boxes.  A cutoff
+    >= 110 * gamma * (2*lambda*v_max + 1) is f32-exact (the skipped exp
+    underflows to +0); smaller values truncate the interaction range.
 
-    ``symmetric``: Newton's-third-law launch -- the Moussaid pair force is
-    exactly antisymmetric, so each unordered pair is computed once and
-    accumulated as +f to its row and -f to its column, halving the pairwise
-    transcendental+ALU work (see :func:`_pair_kernel_sym`).  Equal to the
-    non-symmetric kernel up to f32 summation order.  Applies single-device
-    and, with ``axis_comm="ring"``, as a HALF-ring schedule: the diagonal
-    shard pair runs the local triangle launch, only floor(D/2) ring
-    rotations compute full blocks (even-D opposite pairs tie-broken by
-    device id), and the mirrored -f column sums ride an accumulator around
-    the ring back to their home shard -- ~2x less pairwise work per device.
-    Ignored under ``"gather"``/``"ring_kernel"`` comm (no return channel
-    for the mirrored row there).  Composes with ``cutoff`` and ``compact``.
-
-    Dead/padded agents are staged at a far sentinel so their interactions
-    underflow to zero with no per-pair masking; positions must stay below
-    ~1e6 m in magnitude.
+    Dead/padded agents are staged at a far sentinel; positions must stay
+    below ~1e6 m in magnitude.
     """
     from .vecmath import split_xy
+    for t in (row_tile, col_tile):
+        if t < 1 or t & (t - 1):
+            raise ValueError(f"pair-kernel tiles must be powers of two, "
+                             f"got {row_tile}x{col_tile}")
+    if axis_name is not None and axis_comm not in ("gather", "ring"):
+        raise ValueError(f"axis_comm must be 'gather' or 'ring', "
+                         f"got {axis_comm!r}")
     px, py = split_xy(pos)
     vx, vy = split_xy(vel)
     n = px.shape[0]
@@ -716,7 +379,6 @@ def pedestrian_force_pallas(pos, vel, radius, alive, p: MoussaidParams,
             raise ValueError("law='helbing' needs desired=(ex, ey) planes "
                              "(the FoV modulation reads the desired "
                              "direction; see _pair_tile_helbing)")
-        symmetric = False      # not antisymmetric: no Newton's-third-law
         row_vx, row_vy = desired
     elif desired is not None:
         raise ValueError(f"desired planes only apply to law='helbing', "
@@ -725,243 +387,113 @@ def pedestrian_force_pallas(pos, vel, radius, alive, p: MoussaidParams,
         row_vx, row_vy = vx, vy
 
     n_rows = _round_up(max(n, tr), tr)
-    row_1d = _stage(px, py, row_vx, row_vy, radius, alive, n_rows)
-    row_bb = _bboxes(row_1d, alive, n, tr)
-    row_args = [a.reshape(n_rows, 1) for a in row_1d]
+    rows = _stage(px, py, row_vx, row_vy, radius, alive, n_rows)
+    row_bb = _bboxes(rows, alive, n, tr)
+    prm = _params_vec(p, law)
+    call = functools.partial(_slab_call, prm, rows, row_bb, law=law, tr=tr,
+                             tc=tc, use_radius=use_ped_radius, cutoff=cutoff,
+                             interpret=interpret)
 
-    call = functools.partial(
-        _slab_call, prm=_params_vec(p, law), use_radius=use_ped_radius,
-        tr=tr, tc=tc, cutoff=cutoff, interpret=interpret,
-        exact_div=exact_div, alu_exp=alu_exp, alu_recip=alu_recip,
-        vmem_mb=vmem_mb, law=law)
-
-    if axis_name is not None and axis_comm == "ring_kernel":
-        # fused in-kernel RDMA ring (ops/pallas_ring.py): one pallas_call
-        # rotates the column block over ICI inside the kernel.  All three
-        # force families ride it via the shared tile registry (round 4);
-        # the Newton's-third-law halving does not apply (no return channel
-        # for the mirrored row), matching the "gather" comm semantics.
-        from .pallas_ring import pedestrian_force_pallas_ring
-        return pedestrian_force_pallas_ring(
-            pos, vel, radius, alive, p, axis_name=axis_name,
-            use_ped_radius=use_ped_radius, row_tile=tr, col_tile=tc,
-            interpret=interpret, cutoff=cutoff, planar_out=planar_out,
-            exact_div=exact_div, vmem_mb=max(vmem_mb, 64), law=law,
-            desired=desired if law == "helbing" else None)
     if axis_name is not None and axis_comm == "ring":
         n_dev = jax.lax.psum(1, axis_name)
         perm = [(d, (d - 1) % n_dev) for d in range(n_dev)]
-        n_cols = _round_up(max(n, tc), tc)
-        col_1d = _stage(px, py, vx, vy, radius, alive, n_cols)
-        blk = (jnp.stack(col_1d), _bboxes(col_1d, alive, n, tc))
-        n_r_tiles, n_c_tiles = n_rows // tr, n_cols // tc
-        sym_ring = symmetric and n_dev > 1
-        # the SMEM triangle-table bound only constrains the DIAGONAL
-        # launch; past it the diagonal degrades to a plain non-symmetric
-        # block while the table-free sym_dense rotations keep the
-        # off-diagonal halving (which is where the D-scaling saving lives)
-        tri_fits = n_r_tiles * n_c_tiles <= _TRI_TABLE_MAX
+        cols = _stage(px, py, vx, vy, radius, alive,
+                      _round_up(max(n, 1), tc))
+        blk = (jnp.stack(cols), _bboxes(cols, alive, n, tc))
 
-        if sym_ring:
-            # Newton's-third-law HALF-ring: the diagonal shard pair runs the
-            # local triangle launch, then only floor(D/2) rotations compute
-            # (for even D the "opposite" block is tie-broken by device id so
-            # each shard pair is computed exactly once).  The mirrored -f
-            # column sums ride an accumulator that travels WITH the block
-            # (added after each compute, then forwarded) and takes one home
-            # hop of +(floor(D/2)+1) at the end -- per-device pairwise work
-            # drops from D blocks to ~D/2 (see BENCH.md "Scaling paths").
-            me = jax.lax.axis_index(axis_name)
-            col_args0 = [c.reshape(1, n_cols) for c in col_1d]
-            if tri_fits:
-                tri = jnp.asarray(_triangle_table(n_r_tiles, n_c_tiles,
-                                                  tr, tc))
-                fx0, fy0, fxc0, fyc0 = call(row_args, row_bb, col_args0,
-                                            blk[1], surv=tri, sym=True)
-            else:
-                fx0, fy0 = call(row_args, row_bb, col_args0, blk[1])
-                fxc0 = fyc0 = jnp.zeros((1, n_cols), jnp.float32)
-            s_comp = n_dev // 2
-            tie = n_dev % 2 == 0
-            blk = jax.tree_util.tree_map(
+        def step(carry, _):
+            fx, fy, blk = carry
+            # issue the permute before the kernel so the next block's
+            # transfer overlaps this block's compute
+            nxt = jax.tree_util.tree_map(
                 lambda a: jax.lax.ppermute(a, axis_name, perm), blk)
+            fxp, fyp = call(list(blk[0]), blk[1])
+            return (fx + fxp, fy + fyp, nxt), None
 
-            def step(carry, s):
-                fx, fy, blk, ax, ay = carry
-                cols, col_bb = blk
-                # issue the block permute before the kernel so XLA's async
-                # collective permute overlaps transfer with compute; the
-                # accumulator must be forwarded AFTER this step's add
-                nxt = jax.tree_util.tree_map(
-                    lambda a: jax.lax.ppermute(a, axis_name, perm), blk)
-                col_args = [c.reshape(1, n_cols) for c in cols]
-
-                def compute():
-                    return call(row_args, row_bb, col_args, col_bb,
-                                sym_dense=True)
-
-                def skip():
-                    z = jnp.zeros((n_rows, 1), jnp.float32)
-                    zc = jnp.zeros((1, n_cols), jnp.float32)
-                    return z, z, zc, zc
-
-                if tie:
-                    # step D/2 sees each opposite pair {d, d + D/2} twice;
-                    # the lower id computes it, the higher id idles
-                    fxp, fyp, axp, ayp = jax.lax.cond(
-                        (s < s_comp) | (me < n_dev // 2), compute, skip)
-                else:
-                    fxp, fyp, axp, ayp = compute()
-                ax, ay = jax.lax.ppermute((ax + axp, ay + ayp),
-                                          axis_name, perm)
-                return (fx + fxp, fy + fyp, nxt, ax, ay), None
-
-            zc = jnp.zeros((1, n_cols), jnp.float32)
-            (fx, fy, _, ax, ay), _ = jax.lax.scan(
-                step, (fx0, fy0, blk, zc, zc),
-                1 + jnp.arange(s_comp, dtype=jnp.int32))
-            # block b's accumulator was forwarded once per compute step plus
-            # the pre-rotation: it sits at device (b - s_comp - 1); one hop
-            # of +(s_comp + 1) sends every accumulator home
-            home = [(d, (d + s_comp + 1) % n_dev) for d in range(n_dev)]
-            ax, ay = jax.lax.ppermute((ax, ay), axis_name, home)
-            fx = fx.at[:n, 0].add(fxc0[0, :n] + ax[0, :n])
-            fy = fy.at[:n, 0].add(fyc0[0, :n] + ay[0, :n])
-        else:
-            def step(carry, _):
-                fx, fy, blk = carry
-                cols, col_bb = blk
-                # issue the permute before the kernel so XLA's async
-                # collective permute overlaps the transfer with this
-                # block's compute
-                nxt = jax.tree_util.tree_map(
-                    lambda a: jax.lax.ppermute(a, axis_name, perm), blk)
-                fxp, fyp = call(row_args, row_bb,
-                                [c.reshape(1, n_cols) for c in cols], col_bb)
-                return (fx + fxp, fy + fyp, nxt), None
-
-            zero = jnp.zeros((n_rows, 1), jnp.float32)
-            (fx, fy, _), _ = jax.lax.scan(step, (zero, zero, blk),
-                                          jnp.arange(n_dev))
+        zero = jnp.zeros((n_rows,), jnp.float32)
+        (fx, fy, _), _ = jax.lax.scan(step, (zero, zero, blk),
+                                      jnp.arange(n_dev))
     else:
         if axis_name is not None:
             g = lambda a: jax.lax.all_gather(a, axis_name, tiled=True)  # noqa: E731
-            px_c, py_c, vx_c, vy_c, rad_c, alive_c = (
+            cpx, cpy, cvx, cvy, crad, calive = (
                 g(px), g(py), g(vx), g(vy), g(radius), g(alive))
         else:
-            px_c, py_c, vx_c, vy_c, rad_c, alive_c = (
-                px, py, vx, vy, radius, alive)
-        n_c = px_c.shape[0]
-        n_cols = _round_up(max(n_c, tc), tc)
-        col_1d = _stage(px_c, py_c, vx_c, vy_c, rad_c, alive_c, n_cols)
-        col_bb = _bboxes(col_1d, alive_c, n_c, tc)
-        col_args = [c.reshape(1, n_cols) for c in col_1d]
-
-        n_c_tiles = n_cols // tc
-        if max_surv > 0:
-            # explicit bound: trust the caller, engage whenever compaction
-            # is geometrically possible
-            ms = max_surv
-            engage = n_c_tiles > ms
-        else:
-            # auto survivor bound: at uniform crowd density the per-row-
-            # tile survivor count is nearly N-independent (geometry: a
-            # cutoff-wide band around the row tile's Hilbert patch) --
-            # measured 8-15 at 0.4 peds/m^2 with a 30 m cutoff from N=50k
-            # to N=1M (BENCH.md), so a flat bound suffices; the dense
-            # fallback catches denser crowds, and the (ms, n_row_tiles)
-            # table must stay SMEM-sized (32 * (1e6/192) * 4 B = 667 KB of
-            # the 1 MB v5e SMEM at N=1M).  The 64-tile floor keeps the
-            # default off where the per-step hit-matrix/compaction cost
-            # outruns the grid saving: measured -8% at N=20k (40 tiles)
-            # vs +26%/+51%/7x at N=50k/100k/1M (98/196/1954 tiles).
-            ms = min(n_c_tiles, 32)
-            engage = n_c_tiles > max(2 * ms, 64)
-        use_sym = symmetric and axis_name is None
-        tri = None
-        if use_sym:
-            import numpy as np
-            n_r_tiles = n_rows // tr
-            # the static triangle table must fit SMEM (and not bloat the
-            # compiled program: at N=1M it would be a 40 MB constant --
-            # measured remote-compile failure).  Above the bound the
-            # compacted launch still runs symmetric (its per-step table is
-            # max_surv-wide) with a plain-dense overflow fallback; the
-            # dense launches drop to the non-symmetric kernel.
-            if n_r_tiles * n_c_tiles <= _TRI_TABLE_MAX:
-                tri = jnp.asarray(_triangle_table(n_r_tiles, n_c_tiles,
-                                                  tr, tc))
-
-        def _dense_as_sym():
-            # non-symmetric dense grid wrapped to the sym output signature
-            # (full row sums; zero column parts)
-            fx, fy = call(row_args, row_bb, col_args, col_bb)
-            z = jnp.zeros((1, n_cols), jnp.float32)
-            return fx, fy, z, z
-        if compact and cutoff is not None and engage:
-            # compacted grid: build the tile-pair hit matrix in jnp each
-            # step and launch only surviving column tiles per row tile --
-            # at large N the dense grid is mostly dead iterations (N=1M at
-            # 192x512 tiles is ~10M grid steps for ~0.1% ideal survivors).
-            # Exact: a lax.cond falls back to the dense grid whenever any
-            # row tile overflows ms survivors, and the per-pair cutoff
-            # keeps the force independent of the table either way.
+            cpx, cpy, cvx, cvy, crad, calive = px, py, vx, vy, radius, alive
+        n_c = cpx.shape[0]
+        n_cols = _round_up(max(n_c, 1), tc)
+        cols = _stage(cpx, cpy, cvx, cvy, crad, calive, n_cols)
+        col_bb = _bboxes(cols, calive, n_c, tc)
+        dense = functools.partial(call, cols, col_bb)
+        width = _list_width(n_cols // tc)
+        if cutoff is not None and width:
+            # compacted launch: each row tile walks only its surviving
+            # column tiles (ascending, so the sum order matches the
+            # in-loop skip); a row tile with more survivors than the list
+            # holds sends the step to the in-loop skip
             from .spatial import surv_table
-            n_r_tiles_c = n_rows // tr
-            # the transposed (ms, n_row_tiles) scalar-prefetch table pads
-            # its minor dim to 128 lanes and must fit the ~1 MB v5e SMEM;
-            # fail with advice instead of the opaque AOT allocation error
-            # (observed at N=2M with the default 192-row tiles)
-            table_bytes = 4 * ms * _round_up(n_r_tiles_c, 128)
-            if not interpret and table_bytes > 1_000_000:
-                raise ValueError(
-                    f"compacted-grid survivor table ({ms} x {n_r_tiles_c} "
-                    f"row tiles = {table_bytes / 1e6:.2f} MB) exceeds the "
-                    f"~1 MB TPU SMEM: raise pallas_row_tile (e.g. "
-                    f"{_round_up(max(tr, (4 * ms * n_rows) // 950_000), 8)}"
-                    f") or lower pallas_max_surv, or disable pallas_compact")
             hits = _bbox_hits(row_bb, col_bb, float(cutoff))
-            if use_sym:
-                # intersect with the (static) upper triangle: the sym
-                # kernel only ever needs tiles containing col_gid > row_gid
-                triu = jnp.asarray(
-                    (np.arange(n_c_tiles)[None, :] * tc + tc - 1)
-                    > (np.arange(n_r_tiles)[:, None] * tr))
-                surv, fits = surv_table(hits & triu, ms)
-                fallback = ((lambda: call(row_args, row_bb, col_args,
-                                          col_bb, surv=tri, sym=True))
-                            if tri is not None else _dense_as_sym)
-                out = jax.lax.cond(
-                    fits,
-                    lambda: call(row_args, row_bb, col_args, col_bb,
-                                 surv=surv.T, sym=True),
-                    fallback)
-            else:
-                surv, fits = surv_table(hits, ms)
-                surv_t = surv.T  # (ms, n_row_tiles): SMEM minor-dim padding
-                out = jax.lax.cond(
-                    fits,
-                    lambda: call(row_args, row_bb, col_args, col_bb,
-                                 surv=surv_t),
-                    lambda: call(row_args, row_bb, col_args, col_bb))
-        elif use_sym and tri is not None:
-            out = call(row_args, row_bb, col_args, col_bb, surv=tri,
-                       sym=True)
+            surv, fits = surv_table(hits, width)
+            cnt = jnp.sum(hits, axis=1, dtype=jnp.int32)
+            fx, fy = jax.lax.cond(
+                fits, lambda: call(cols, col_bb, surv=(surv, cnt)), dense)
         else:
-            use_sym = False
-            out = call(row_args, row_bb, col_args, col_bb)
-        if use_sym:
-            fxr, fyr, fxc, fyc = out
-            # combine the row-accumulated halves with the mirrored column
-            # halves (padding widths differ; only [:n] slots are real)
-            fx = fxr[:n] + fxc[0, :n, None]
-            fy = fyr[:n] + fyc[0, :n, None]
-        else:
-            fx, fy = out
+            fx, fy = dense()
 
+    fx = fx[:n].astype(px.dtype)
+    fy = fy[:n].astype(py.dtype)
     if planar_out:
-        return fx[:n, 0].astype(px.dtype), fy[:n, 0].astype(py.dtype)
-    return jnp.concatenate([fx[:n], fy[:n]], axis=-1).astype(px.dtype)
+        return fx, fy
+    return jnp.stack([fx, fy], axis=-1)
+
+
+def _list_width(n_col_tiles: int) -> int:
+    """Survivor-list width of the compacted cutoff launch over
+    ``n_col_tiles`` column tiles; 0 where the list does not engage."""
+    width = min(_MAX_SURV, n_col_tiles)
+    return width if n_col_tiles > 2 * width else 0
+
+
+def survivor_counts(pos, alive, cutoff: float, row_tile: int = 32,
+                    col_tile: int = 32, spatial_order: str = "hilbert",
+                    axis_name: str | None = None):
+    """``(counts, width)`` of the survivor lists that
+    :func:`pedestrian_force_pallas_sorted` (``axis_comm="gather"`` under
+    ``axis_name``) builds for this layout: per local row tile the number of
+    column tiles within ``cutoff``, and the list width.  The lists run iff
+    ``width > 0`` and every count <= width; otherwise the in-loop skip runs.
+    A diagnostic for tests and chip_smoke.py."""
+    from .spatial import morton_sort
+    from .vecmath import split_xy
+    px, py = split_xy(pos)
+    (sx, sy, sa), _ = morton_sort((px, py), alive, (px, py, alive),
+                                  order=spatial_order)
+    n = sx.shape[0]
+    n_rows = _round_up(max(n, row_tile), row_tile)
+    row_bb = _bboxes(_stage(sx, sy, sx, sx, sx, sa, n_rows), sa, n, row_tile)
+    if axis_name is not None:
+        sx, sy, sa = (jax.lax.all_gather(a, axis_name, tiled=True)
+                      for a in (sx, sy, sa))
+    n_c = sx.shape[0]
+    n_cols = _round_up(max(n_c, 1), col_tile)
+    col_bb = _bboxes(_stage(sx, sy, sx, sx, sx, sa, n_cols), sa, n_c,
+                     col_tile)
+    hits = _bbox_hits(row_bb, col_bb, float(cutoff))
+    return (jnp.sum(hits, axis=1, dtype=jnp.int32),
+            _list_width(n_cols // col_tile))
+
+
+def _bbox_hits(row_bb, col_bb, cutoff: float):
+    """(R, C) bool: is the gap between row tile i's and column tile j's
+    bounding boxes within the cutoff?  The jnp twin of the in-kernel test
+    (same (4, n_tiles) boxes; empty tiles never hit)."""
+    gx = jnp.maximum(jnp.maximum(col_bb[0][None, :] - row_bb[1][:, None],
+                                 row_bb[0][:, None] - col_bb[1][None, :]),
+                     0.0)
+    gy = jnp.maximum(jnp.maximum(col_bb[2][None, :] - row_bb[3][:, None],
+                                 row_bb[2][:, None] - col_bb[3][None, :]),
+                     0.0)
+    return gx * gx + gy * gy <= cutoff * cutoff
 
 
 def _stage(px, py, vx, vy, rad, ok, width):
@@ -975,18 +507,18 @@ def _stage(px, py, vx, vy, rad, ok, width):
     return out
 
 
-def _bboxes(staged_1d, alive, count, tile):
-    """(4, n_tiles) transposed tile bounding boxes (SMEM layout; see
-    _pair_kernel)."""
+def _bboxes(staged, alive, count, tile):
+    """(4, n_tiles) tile bounding boxes (minx, maxx, miny, maxy rows) of
+    the alive agents in the staged planes."""
     from .spatial import tile_bboxes
-    width = staged_1d[0].shape[0]
+    width = staged[0].shape[0]
     mask = jnp.zeros((width,), bool).at[:count].set(alive)
-    return tile_bboxes(staged_1d[0], staged_1d[1], mask, tile).T
+    return tile_bboxes(staged[0], staged[1], mask, tile).T
 
 
 def _params_vec(p, law: str = "moussaid") -> jnp.ndarray:
-    """Force-parameter vector (scalar-prefetch payload) for the given pair
-    law; leaves may be traced (parameter sweeps vmap over them)."""
+    """Force-parameter vector for the given pair law, padded to 8 entries;
+    leaves may be traced (parameter sweeps vmap over them)."""
     if law == "powerlaw":
         vals = (p.k, p.tau0, p.tau_max, p.tau_min)
     elif law == "helbing":
@@ -994,139 +526,32 @@ def _params_vec(p, law: str = "moussaid") -> jnp.ndarray:
                 p.fov_factor, p.step_width, p.b_min)
     else:
         vals = (p.lambda_, p.A, p.gamma, p.n, p.n_prime, p.epsilon)
-    return jnp.stack([jnp.asarray(v, jnp.float32) for v in vals], axis=-1)
-
-
-def _slab_call(row_args, row_bb, col_args, col_bb, *,
-               prm, use_radius, tr, tc, cutoff, interpret, exact_div=False,
-               alu_exp=False, alu_recip=False, vmem_mb=32, surv=None,
-               sym=False, sym_dense=False, law="moussaid"):
-    """One kernel launch over a (n_rows x n_cols) slab of staged state.
-
-    ``surv=None`` runs the dense grid (every (row-tile, col-tile) pair a
-    grid step, skipped in-kernel by the bbox test when a cutoff is set); a
-    (n_row_tiles, max_surv) int32 ``surv`` runs the compacted grid over
-    surviving column tiles only, fetched through surv-indexed index maps.
-
-    ``sym`` (requires ``surv``, built from/intersected with the upper
-    triangle): Newton's-third-law launch -- each unordered pair computed
-    once, with the mirrored forces accumulated into two extra
-    ``(1, n_cols)`` outputs (see :func:`_pair_kernel_sym`).  Returns
-    ``(fx_rows, fy_rows, fx_cols, fy_cols)``.
-
-    ``sym_dense``: the full-block variant for off-diagonal shard pairs of
-    the half-ring schedule -- dense grid, every pair computed once with the
-    mirrored sums in the column accumulators, no triangle (see
-    :func:`_pair_kernel_sym_dense`).  Same 4-output signature as ``sym``."""
-    n_rows = row_args[0].shape[0]
-    n_cols = col_args[0].shape[1]
-    if sym and surv is None:
-        raise ValueError("sym launches need a (triangle) surv table")
-    if sym_dense and surv is not None:
-        raise ValueError("sym_dense launches run the dense grid")
-
-    # index maps receive (i, j, *scalar_prefetch_refs) under
-    # PrefetchScalarGridSpec -- swallow the scalar refs
-    row_spec = pl.BlockSpec((tr, 1), lambda i, j, *_: (i, 0),
-                            memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((tr, 1), lambda i, j, *_: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    if surv is None:
-        grid = (n_rows // tr, n_cols // tc)
-        num_prefetch = 3
-        prefetch = (prm, row_bb, col_bb)
-        col_spec = pl.BlockSpec((1, tc), lambda i, j, *_: (0, j),
-                                memory_space=pltpu.VMEM)
-        kern = _pair_kernel_sym_dense if sym_dense else _pair_kernel
-    else:
-        # surv arrives transposed, (max_surv, n_row_tiles) -- see
-        # _pair_kernel_compact's SMEM layout note
-        grid = (n_rows // tr, surv.shape[0])
-        num_prefetch = 4
-        prefetch = (prm, row_bb, col_bb, surv)
-
-        def _surv_map(i, j, prm_r, rbb_r, cbb_r, surv_r):
-            # padded slots (-1) fetch tile 0; the kernel skips their compute
-            # (and consecutive equal blocks are not re-fetched)
-            return (0, jnp.maximum(surv_r[j, i], 0))
-
-        col_spec = pl.BlockSpec((1, tc), _surv_map,
-                                memory_space=pltpu.VMEM)
-        kern = _pair_kernel_sym if sym else _pair_kernel_compact
-
-    kernel = functools.partial(
-        kern, law=law, use_radius=use_radius, tr=tr, tc=tc,
-        cutoff=float(cutoff) if cutoff is not None else None,
-        exact_div=exact_div, alu_exp=alu_exp, alu_recip=alu_recip)
-
-    out_shapes = [jax.ShapeDtypeStruct((n_rows, 1), jnp.float32)] * 2
-    out_specs = [out_spec, out_spec]
-    if sym or sym_dense:
-        # the column accumulators: one block, constant index map -> resident
-        # in VMEM across the whole launch, written back once at the end
-        col_out = pl.BlockSpec((1, n_cols), lambda i, j, *_: (0, 0),
-                               memory_space=pltpu.VMEM)
-        out_shapes += [jax.ShapeDtypeStruct((1, n_cols), jnp.float32)] * 2
-        out_specs += [col_out, col_out]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=num_prefetch,
-        grid=grid,
-        in_specs=[row_spec] * 5 + [col_spec] * 5,
-        out_specs=tuple(out_specs),
-    )
-    pair_scale = 0.5 if sym else 1.0
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=tuple(out_shapes),
-        cost_estimate=pl.CostEstimate(
-            flops=int(40 * n_rows * grid[1] * tc * pair_scale),
-            bytes_accessed=int(4 * 8 * (n_rows * grid[1]
-                                        + grid[1] * tc * grid[0])),
-            transcendentals=int(5 * n_rows * grid[1] * tc * pair_scale)),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=int(vmem_mb) * 1024 * 1024,
-            # row tiles are independent; only the column dimension revisits
-            # the row output block (accumulation), so it must stay
-            # "arbitrary".  The sym/sym_dense launches also accumulate the
-            # column block across ROW tiles, so there both dimensions are
-            # "arbitrary" (single-core v5e: the grid is sequential anyway).
-            dimension_semantics=(("arbitrary" if (sym or sym_dense)
-                                  else "parallel"), "arbitrary")),
-        interpret=interpret,
-    )(*prefetch, *row_args, *col_args)
+    vals = [jnp.asarray(v, jnp.float32) for v in vals]
+    vals += [jnp.zeros_like(vals[0])] * (8 - len(vals))
+    return jnp.stack(vals, axis=-1)
 
 
 def pedestrian_force_pallas_sorted(pos, vel, radius, alive, p: MoussaidParams,
                                    cutoff: float,
                                    use_ped_radius: bool = False,
-                                   row_tile: int = 512, col_tile: int = 1024,
+                                   row_tile: int = 32, col_tile: int = 32,
                                    interpret: bool = False,
                                    axis_name: str | None = None,
                                    axis_comm: str = "ring",
                                    planar_out: bool = False,
-                                   exact_div: bool = False,
-                                   alu_exp: bool = False,
-                                   alu_recip: bool = False,
-                                   vmem_mb: int = 32,
                                    spatial_order: str = "hilbert",
-                                   compact: bool = False,
-                                   max_surv: int = 0,
-                                   symmetric: bool = False,
                                    law: str = "moussaid",
                                    desired=None):
     """Locality-sorted cutoff kernel: sort agents along a space-filling
     curve so kernel tiles are spatially tight, run the cutoff kernel,
-    scatter the forces back to the original slot order.  The result equals
-    the unsorted cutoff kernel up to f32 summation order.
+    scatter the forces back to the original slot order.  Equals the
+    unsorted cutoff kernel up to f32 summation order.
 
-    ``spatial_order``: ``"hilbert"`` (default; no Z-jumps -> tighter tile
-    boxes -> more skipped tile pairs, same cost) or ``"morton"`` (Z-order).
+    ``spatial_order``: ``"hilbert"`` (default; no Z-jumps, so tighter
+    tile boxes and more skipped tiles) or ``"morton"`` (Z-order).
 
-    Under agent-sharding (``axis_name``), each device sorts its *local*
-    shard -- the per-pair cutoff keeps the result exact regardless of the
+    Under agent-sharding (``axis_name``) each device sorts its *local*
+    shard; the per-pair cutoff keeps the result exact regardless of the
     global layout, and the rotated per-tile bounding boxes let spatially
     distant shard pairs skip all their tiles."""
     from .spatial import morton_sort
@@ -1144,10 +569,8 @@ def pedestrian_force_pallas_sorted(pos, vel, radius, alive, p: MoussaidParams,
         (spx, spy), (svx, svy), srad, salive, p,
         use_ped_radius=use_ped_radius, row_tile=row_tile, col_tile=col_tile,
         interpret=interpret, cutoff=cutoff, axis_name=axis_name,
-        axis_comm=axis_comm, planar_out=planar_out, exact_div=exact_div,
-        alu_exp=alu_exp, alu_recip=alu_recip,
-        vmem_mb=vmem_mb, compact=compact, max_surv=max_surv,
-        symmetric=symmetric, law=law, desired=sdesired)
+        axis_comm=axis_comm, planar_out=planar_out, law=law,
+        desired=sdesired)
     if planar_out:
         fx, fy = force
         return fx[inv], fy[inv]

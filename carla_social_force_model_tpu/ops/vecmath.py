@@ -1,6 +1,6 @@
 """Branchless 2-D vector math primitives shared by all force kernels.
 
-These are the TPU-native (masked, zero-safe, fixed-shape) equivalents of the
+These are the vectorized (masked, zero-safe, fixed-shape) equivalents of the
 reference's numpy helpers (see /root/reference/stateutils.py:7-128): zero-safe
 normalization, velocity capping, and signed 2-D angle differences with +-pi
 wrapping.  Everything here is pure jnp, works under jit/vmap/shard_map, and is
@@ -19,7 +19,7 @@ def split_xy(v):
     """``(x, y)`` planes of ``v``: a pass-through for an (x, y) tuple, the
     column split of an ``(..., 2)`` array.  The planar-interface convention:
     functions on the hot path accept either form and compute on planes
-    (a size-2 minor dimension pads 2 -> 128 lanes on TPU)."""
+    (see models/state.py)."""
     if isinstance(v, (tuple, list)):
         x, y = v
         return x, y

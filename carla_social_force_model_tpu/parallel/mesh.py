@@ -4,7 +4,7 @@ Two mesh axes cover the framework's parallelism (SURVEY.md section 2,
 "Parallelism & distributed-communication inventory"):
 
 * ``agents`` -- shard pedestrian slots across devices; the N x N force
-  all-gathers column state over ICI (the analogue of tensor/sequence
+  all-gathers column state over the interconnect (the analogue of tensor/sequence
   parallelism for an n-body kernel).
 * ``batch``  -- data parallelism over independent scenario rollouts
   (parameter sweeps), mapped with vmap + sharding annotations.

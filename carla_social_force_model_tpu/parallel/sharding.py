@@ -3,7 +3,7 @@
 The rollout runs under ``shard_map`` with every per-slot array (state, spawn
 schedule, route buffer) sharded along the ``agents`` mesh axis and the scene
 geometry replicated.  Only the N x N pedestrian force communicates: it
-all-gathers the (pos, vel, radius, alive) column tile over ICI
+all-gathers the (pos, vel, radius, alive) column tile over the interconnect
 (ops/forces.py ``axis_name``); every other stage is slot-local, so one tick
 costs exactly one all-gather of ~17 bytes/agent (or the ppermute ring,
 ``axis_comm="ring"``).  Exception: a reactive autopilot fleet

@@ -4,7 +4,7 @@ The reference's ``auto_pilot = true`` + ``destination`` vehicles hand route
 planning to CARLA's ``BehaviorAgent``, which plans over the town's driving
 lanes (/root/reference/vehicle_spawner.py:131-138; the agent's
 GlobalRoutePlanner walks ``map.get_topology()``).  Headless there is no
-CARLA road network, so this module provides the TPU-native equivalent: a
+CARLA road network, so this module provides the on-device equivalent: a
 *directed* graph over driving-lane waypoint chains, built from the same
 topology walk the pedestrian NavGraph uses (routing/carla_graph.py) but on
 the driving lanes themselves, serializable to ``.npz`` for headless replay

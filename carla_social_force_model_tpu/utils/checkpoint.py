@@ -32,7 +32,13 @@ from ..models.state import PedState
 
 
 def _orbax_checkpointer():
-    import orbax.checkpoint as ocp
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "the orbax checkpoint backend needs the 'orbax-checkpoint' "
+            "package, which is not installed; use the npz backend "
+            "(--checkpoint-backend npz)") from e
     try:
         return ocp.PyTreeCheckpointer()
     except AttributeError:  # newer orbax dropped the alias

@@ -60,8 +60,10 @@ def measure_rollout(run_fn, state, *, num_steps: int, capacity: int,
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/sfm_tpu_trace"):
-    """Capture a JAX profiler trace around a block (view with xprof)."""
+def trace(log_dir: str = "sfm_trace"):
+    """Capture a JAX profiler trace around a block (view with xprof or
+    Perfetto).  The default directory is relative to the working
+    directory."""
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

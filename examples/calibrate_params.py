@@ -22,7 +22,7 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# CPU is fine for the demo's N; override the environment's TPU auto-select
+# CPU is fine for the demo's N
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax  # noqa: E402
 

@@ -2,8 +2,7 @@
 
 BASELINE.json config #5's shape -- B independent scenario instances of N
 pedestrians each, vmapped over the crowd axis with the fused Pallas
-pairwise kernel under the vmap (28.3M agent-steps/s aggregate measured at
-256 x 1k on a v5e chip; BENCH.md).  The reference runs one real-time
+pairwise kernel under the vmap on the GPU (PERF.md).  The reference runs one real-time
 scenario per process (run_simulation.py:211-221), so this whole mode of
 operation -- seed ensembles, Monte-Carlo evacuation studies -- exists only
 here.
@@ -37,10 +36,7 @@ def main():
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 500
     steps = 200
 
-    import jax
     scene, params, cfg, _ = benchmark_bundle(n)
-    cfg = dataclasses.replace(cfg,
-                              use_pallas=jax.default_backend() == "tpu")
     # one spawn schedule per crowd, different seeds -> an independent
     # antipodal-counterflow instance each
     scene = dataclasses.replace(scene, spawn=batched_crowds(batch, n))

@@ -4,7 +4,7 @@ counterflow (BASELINE.json config #5's sweep capability on a real scenario).
 
 Runs a batch of rollouts of the shipped corridor scenario with
 ``pedestrian_force.A`` swept across a range -- one vmapped launch, fused
-Pallas kernel on TPU -- and reports/plots mean evacuation progress per A.
+Pallas kernel on the GPU -- and reports/plots mean evacuation progress per A.
 
 Run:  python examples/parameter_sweep.py [--points 16] [--out sweep.png]
 """

@@ -4,7 +4,8 @@ Independent re-derivation of the reference force math (Moussaid et al. 2009 /
 Helbing-Molnar 1995, as realized in /root/reference/forces.py,
 stateutils.py, check_traffic.py and ped_mode_manager.py), kept deliberately
 simple and loop-based so it is easy to audit against the published formulas.
-The TPU kernels are validated against this oracle within tight tolerances.
+The jnp and kernel paths are validated against this oracle within tight
+tolerances.
 
 Conventions (matching the reference):
 * pair direction e_ij points from pedestrian i toward partner j,

@@ -2,6 +2,7 @@
 import os
 
 import numpy as np
+import pytest
 
 from carla_social_force_model_tpu.api.synthetic import benchmark_bundle
 from carla_social_force_model_tpu.models.state import PedState
@@ -98,6 +99,7 @@ def test_save_load_roundtrip(tmp_path):
 def test_orbax_backend_roundtrip_and_resume(tmp_path):
     """The orbax backend saves/loads the same payload as npz, and a
     resumed run reads a mixed npz/orbax checkpoint directory."""
+    pytest.importorskip("orbax.checkpoint")
     n, steps = 16, 30
     scene, params, cfg, state = benchmark_bundle(n, extent=10.0)
     run = make_rollout_fn(scene, params, cfg, steps, record=False)
@@ -128,6 +130,17 @@ def test_orbax_backend_roundtrip_and_resume(tmp_path):
 
     save_state(os.path.join(ckpt_dir, "ckpt_00000031.npz"), final_seg, 31)
     assert latest_checkpoint(ckpt_dir).endswith("ckpt_00000031.npz")
+
+
+def test_orbax_backend_missing_names_the_package(tmp_path, monkeypatch):
+    """Without orbax installed the orbax backend fails with a message that
+    names the package and the npz alternative."""
+    import sys
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    scene, params, cfg, state = benchmark_bundle(8, extent=8.0)
+    with pytest.raises(ImportError, match="orbax-checkpoint.*npz"):
+        save_state(str(tmp_path / "ckpt_00000001.orbax"), state, 1)
 
 
 def test_animate_trajectories(tmp_path):

@@ -1,10 +1,11 @@
-"""Fused environment-force kernels (ops/pallas_env.py) vs the jnp path.
+"""Fused environment-force kernel (ops/pallas_env.py) vs the jnp path.
 
-The fused kernels compute per-segment closest points and force accumulation
-in one pass over a segment-major layout; these tests pin their equivalence
-to the reference-parity jnp formulation (ops/forces.py) in interpret mode,
-including dead pedestrians, crossing-mode masking, filter circles, inactive
-vehicles, and ragged segment sizes.
+The fused kernel computes per-section closest points and force
+accumulation in one pass over a section-major layout; these tests pin its
+equivalence to the reference-parity jnp formulation (ops/forces.py) in the
+Pallas interpreter, including dead pedestrians, crossing-mode masking,
+filter circles, inactive vehicles, and ragged section sizes
+(tests/test_gpu_kernels.py runs it compiled on the card).
 """
 import dataclasses
 
@@ -228,8 +229,8 @@ def test_fused_rollout_matches_jnp_rollout():
 
 
 def _grid_borders(n_rows=3, n_sections=40, section_m=10.0):
-    """Many short wall sections (rows far apart) -- enough point tiles for
-    the compacted grid to engage."""
+    """Many short wall sections in rows far apart: most (section, ped
+    tile) pairs are skipped by the filter-circle test."""
     lines, centers, lengths = [], [], []
     for y in np.linspace(-200.0, 200.0, n_rows):
         for k in range(n_sections):
@@ -242,8 +243,8 @@ def _grid_borders(n_rows=3, n_sections=40, section_m=10.0):
 
 
 def _clustered_state(n=97):
-    """Pedestrians clustered near the middle wall row, in small groups so
-    each 128-ped tile hits only a few point tiles."""
+    """Pedestrians clustered near the middle wall row, so each ped tile
+    touches only a few sections."""
     rng = np.random.default_rng(5)
     pos = jnp.asarray(np.column_stack([rng.uniform(-30, 30, n),
                                        rng.uniform(-6, 6, n)]), jnp.float32)
@@ -255,108 +256,60 @@ def _clustered_state(n=97):
         mode=jnp.full((n,), modes.WALKING_SIDEWALK, jnp.int32))
 
 
-def test_compact_grid_matches_dense():
-    """The compacted surv-indexed grid equals the dense grid bitwise (same
-    ascending accumulation order), and the auto gate actually engages the
-    compact branch on this geometry."""
-    from carla_social_force_model_tpu.ops.pallas_env import _tile_hits
-    from carla_social_force_model_tpu.ops.spatial import surv_table
-    borders = _grid_borders()
-    scene = prepare_scene(Scene(spawn=None, borders=borders))
-    assert scene.borders_seg is not None
-    seg = scene.borders_seg
-    # the auto gate engages: >8 point tiles at gs=8 (120 segments)
-    n_tiles = -(-seg.num_segments // 8)
-    assert n_tiles > 8
+def test_sparse_grid_skip_matches_jnp():
+    """The section skip is exact on a sparse grid: the kernel (most
+    section/tile pairs skipped) equals the jnp path (no skip)."""
+    scene = prepare_scene(Scene(spawn=None, borders=_grid_borders()))
     state = _clustered_state()
     params = SfmParams(enable_border=True)
-
-    dense = fused_environment_terms(state, scene, params, None,
-                                    ped_tile=128, interpret=True,
-                                    compact=False)
-    comp = fused_environment_terms(state, scene, params, None,
-                                   ped_tile=128, interpret=True,
-                                   compact=True)
-    np.testing.assert_array_equal(np.asarray(comp["border_force"][0]),
-                                  np.asarray(dense["border_force"][0]))
-    np.testing.assert_array_equal(np.asarray(comp["border_force"][1]),
-                                  np.asarray(dense["border_force"][1]))
-    # and the force is actually nonzero (peds sit next to the middle row)
-    assert np.abs(np.asarray(dense["border_force"][1])).max() > 0.0
-
-    # sanity: on this layout no ped tile overflows the auto max_surv, so
-    # the compact branch (not the cond fallback) produced the result
-    from carla_social_force_model_tpu.ops.spatial import (morton_sort,
-                                                          tile_bboxes)
-    from carla_social_force_model_tpu.ops.pallas_env import (_stage_lane,
-                                                             _stage_seg_plane)
-    (spx, spy, salive), _ = morton_sort(
-        (state.pos_x, state.pos_y), state.alive,
-        (state.pos_x, state.pos_y, state.alive), order="hilbert")
-    n_pad = 128
-    px = _stage_lane(spx, 1e8, salive, n_pad)
-    py = _stage_lane(spy, 1e8, salive, n_pad)
-    alive_pad = jnp.zeros((n_pad,), bool).at[:97].set(salive)
-    bb = tile_bboxes(px, py, alive_pad, 128).T
-    s_pad = -(-seg.num_segments // 8) * 8
-    circ = jnp.concatenate(
-        [_stage_seg_plane(seg.centers[:, 0], 1e8, s_pad),
-         _stage_seg_plane(seg.centers[:, 1], 1e8, s_pad),
-         _stage_seg_plane(jnp.maximum(seg.filter_radius, 0.0) ** 2,
-                          -1.0, s_pad)], axis=1).T
-    hits = _tile_hits(bb, circ, 8, s_pad // 8)
-    ms = min(s_pad // 8, max(8, -(-(s_pad // 8) // 3)))
-    _, fits = surv_table(hits, ms)
-    assert bool(fits), "expected the compact branch to run (no overflow)"
+    got = fused_environment_terms(state, scene, params, None, ped_tile=32,
+                                  interpret=True)
+    want = forces.border_force(state.pos, state.mode, state.radius,
+                               state.alive, scene.borders, params.border)
+    got_f = np.stack([np.asarray(a) for a in got["border_force"]], axis=-1)
+    np.testing.assert_allclose(got_f, np.asarray(want), rtol=3e-5, atol=3e-5)
+    assert np.abs(got_f).max() > 0.0
 
 
-def test_compact_overflow_falls_back_dense():
-    """max_surv too small for the geometry -> the lax.cond picks the dense
-    grid and the result is still exact."""
-    borders = _grid_borders()
-    scene = prepare_scene(Scene(spawn=None, borders=borders))
-    state = _clustered_state()
-    params = SfmParams(enable_border=True)
-    dense = fused_environment_terms(state, scene, params, None,
-                                    ped_tile=128, interpret=True,
-                                    compact=False)
-    comp = fused_environment_terms(state, scene, params, None,
-                                   ped_tile=128, interpret=True,
-                                   compact=True, max_surv=1)
-    np.testing.assert_array_equal(np.asarray(comp["border_force"][0]),
-                                  np.asarray(dense["border_force"][0]))
-    np.testing.assert_array_equal(np.asarray(comp["border_force"][1]),
-                                  np.asarray(dense["border_force"][1]))
+def test_env_kernel_padding_and_dead_agents():
+    """N not a multiple of the ped tile, dead agents, crossing modes: the
+    kernel's staging pads with far sentinels that feel nothing."""
+    scene = _scene(with_vehicles=False)
+    state = _state(n=45, dead_frac=0.3)
+    params = SfmParams(enable_border=True, enable_static_obstacle=True)
+    got = fused_environment_terms(state, scene, params, None, ped_tile=32,
+                                  point_tile=64, interpret=True)
+    want = {"border_force": forces.border_force(
+                state.pos, state.mode, state.radius, state.alive,
+                scene.borders, params.border),
+            "static_obstacle_force": forces.obstacle_force(
+                state.pos, state.vel, state.radius, state.alive,
+                scene.static_obstacles, scene.static_obstacle_vel,
+                params.static_obstacle)}
+    for name, w in want.items():
+        g = np.stack([np.asarray(a) for a in got[name]], axis=-1)
+        np.testing.assert_allclose(g, np.asarray(w), rtol=3e-5, atol=3e-5,
+                                   err_msg=name)
+        assert np.all(g[~np.asarray(state.alive)] == 0.0)
 
 
-def test_compact_mixed_granularity_bitwise_consistent():
-    """When point_tile // points_per_segment is not a multiple of 8
-    (gs_d=1 here vs compact's gs_c=8), the overflow fallback must still be
-    bitwise-equal to the compact branch (both run gs_c granularity), while
-    cross-mode (compact vs dense gs_d) equality is only allclose -- the f32
-    segment sum is grouped differently."""
-    borders = _grid_borders()
-    scene = prepare_scene(Scene(spawn=None, borders=borders))
-    assert scene.borders_seg.points_per_segment == 128
-    state = _clustered_state()
-    params = SfmParams(enable_border=True)
-
-    kw = dict(ped_tile=128, point_tile=128, interpret=True)
-    comp = fused_environment_terms(state, scene, params, None,
-                                   compact=True, **kw)
-    overflow = fused_environment_terms(state, scene, params, None,
-                                       compact=True, max_surv=1, **kw)
-    for plane in (0, 1):
-        np.testing.assert_array_equal(
-            np.asarray(comp["border_force"][plane]),
-            np.asarray(overflow["border_force"][plane]))
-
-    dense = fused_environment_terms(state, scene, params, None,
-                                    compact=False, **kw)
-    for plane in (0, 1):
-        np.testing.assert_allclose(np.asarray(comp["border_force"][plane]),
-                                   np.asarray(dense["border_force"][plane]),
-                                   atol=1e-5)
+def test_section_closest_point_matches_chunked():
+    """The jnp section-major closest point (the kernel's plain twin) picks
+    the same first-occurrence point as the chunked segmented-min path."""
+    from carla_social_force_model_tpu.ops.geometry import (
+        closest_point_per_segment, section_closest_point)
+    pset = _ragged_borders()
+    state = _state(n=50)
+    d2, cx, cy = section_closest_point(state.pos_x, state.pos_y,
+                                       segment_major(pset))
+    dist, point, has = closest_point_per_segment(state.pos, pset)
+    has = np.asarray(has)
+    np.testing.assert_allclose(np.sqrt(np.asarray(d2))[has],
+                               np.asarray(dist)[has], rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(cx)[has],
+                                  np.asarray(point)[..., 0][has])
+    np.testing.assert_array_equal(np.asarray(cy)[has],
+                                  np.asarray(point)[..., 1][has])
 
 
 # ---------------------------------------------------------------------------
@@ -500,24 +453,32 @@ def test_analytic_border_force_matches_f64_oracle(use_radius):
     assert np.all(got_f[~np.asarray(state.alive)] == 0.0)
 
 
-def test_analytic_compact_matches_dense():
-    """The compacted grid composes with the analytic tier."""
+@pytest.mark.parametrize("use_radius", [False, True])
+def test_jnp_analytic_border_force_matches_f64_oracle(use_radius):
+    """env_analytic on the jnp path (use_pallas=False): the clamped
+    projection onto the Douglas-Peucker segments plus the sampled rest
+    equals the f64 oracle, like the kernel path."""
     lines, centers, lengths = _analytic_lines()
     scene = prepare_scene(Scene(spawn=None,
                                 borders=build_border_set(lines, centers,
                                                          lengths)),
                           analytic=True)
     state = _state(n=83)
-    params = SfmParams(enable_border=True, enable_space_repulsive=True)
-    kw = dict(ped_tile=128, point_tile=128, interpret=True, analytic=True)
-    dense = fused_environment_terms(state, scene, params, None, **kw)
-    comp = fused_environment_terms(state, scene, params, None,
-                                   compact=True, max_surv=2, **kw)
-    for name in ("border_force", "space_repulsive_force"):
-        for plane in (0, 1):
-            np.testing.assert_allclose(np.asarray(comp[name][plane]),
-                                       np.asarray(dense[name][plane]),
-                                       atol=1e-5)
+    params = SfmParams(enable_border=True, use_ped_radius=use_radius)
+    cfg = StepConfig(use_pallas=False, env_analytic=True)
+    got = force_terms(state, scene, params, cfg, None)
+    got_f = np.stack([np.asarray(a) for a in got["border_force"]], axis=-1)
+    want = _border_oracle_f64(lines, centers, lengths, state,
+                              params.border, use_radius,
+                              analytic_idx={0, 1, 2, 3})
+    err = np.linalg.norm(got_f - want, axis=1)
+    lim = 3e-4 * np.linalg.norm(want, axis=1) + 3e-5
+    assert np.all(err <= lim), (err / np.maximum(lim, 1e-30)).max()
+    # and the sampled default differs (the tier is not silently ignored)
+    sampled = force_terms(state, scene, params,
+                          StepConfig(use_pallas=False), None)
+    assert not np.allclose(np.asarray(sampled["border_force"][0]),
+                           np.asarray(got["border_force"][0]))
 
 
 def test_analytic_stepper_dispatch():
@@ -536,7 +497,8 @@ def test_analytic_stepper_dispatch():
         env_ped_tile=128, env_analytic=True)
     t_on = force_terms(state, scene, params, cfg, None)
     direct = fused_environment_terms(state, scene, params, None,
-                                     ped_tile=128, point_tile=512,
+                                     ped_tile=128,
+                                     point_tile=cfg.env_point_tile,
                                      analytic=True, interpret=True)
     for plane in (0, 1):
         np.testing.assert_array_equal(
@@ -546,7 +508,8 @@ def test_analytic_stepper_dispatch():
     cfg_off = dataclasses.replace(cfg, env_analytic=False)
     t_off = force_terms(state, scene, params, cfg_off, None)
     sampled = fused_environment_terms(state, scene, params, None,
-                                      ped_tile=128, point_tile=512,
+                                      ped_tile=128,
+                                      point_tile=cfg.env_point_tile,
                                       interpret=True)
     for plane in (0, 1):
         np.testing.assert_array_equal(
@@ -601,58 +564,6 @@ def test_prepare_scene_analytic_is_lazy_and_idempotent():
     assert on.borders_geom is not None and on.borders_seg_rest is not None
 
 
-# --------------------------------------------------------------------------
-# closest_point_per_chunk (round 4: the ORCA static-constraint feed)
-# --------------------------------------------------------------------------
-
-def test_closest_point_per_chunk_pallas_matches_jnp():
-    """The tile-skipping Pallas chunk pass (interpret mode) agrees with the
-    grouped jnp fallback, and both agree with a numpy brute force."""
-    from carla_social_force_model_tpu.ops.geometry import (
-        closest_point_per_chunk)
-    pset = _ragged_borders()
-    nd = 12.0
-    n = 70
-    pos = RNG.uniform(-22, 10, (n, 2)).astype(np.float32)
-    px, py = jnp.asarray(pos[:, 0]), jnp.asarray(pos[:, 1])
-    alive = jnp.asarray(RNG.uniform(size=n) < 0.9)
-
-    d2_j, wx_j, wy_j = closest_point_per_chunk(px, py, pset, nd,
-                                               alive=alive,
-                                               use_pallas=False)
-    d2_p, wx_p, wy_p = closest_point_per_chunk(px, py, pset, nd,
-                                               alive=alive,
-                                               use_pallas=True,
-                                               interpret=True)
-    d2_j, d2_p = np.asarray(d2_j), np.asarray(d2_p)
-    fin_j, fin_p = np.isfinite(d2_j), np.isfinite(d2_p)
-    # the Pallas tile skip may only drop entries beyond neigh_dist (both
-    # report inf there after masking) -- for ALIVE peds the finite sets
-    # must agree exactly; dead rows are unspecified under the tile skip
-    al = np.asarray(alive)
-    assert (fin_j[:, al] == fin_p[:, al]).all()
-    m = fin_j & fin_p
-    np.testing.assert_allclose(d2_j[m], d2_p[m], rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(wx_j)[m], np.asarray(wx_p)[m],
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(wy_j)[m], np.asarray(wy_p)[m],
-                               rtol=0, atol=1e-5)
-
-    # numpy brute force over the raw chunked points
-    pts = np.asarray(pset.points)
-    val = np.asarray(pset.valid)
-    c = pts.shape[0]
-    for ci in range(c):
-        q = pts[ci][val[ci]]
-        if q.size == 0:
-            continue
-        d2ref = ((q[:, None, :] - pos[None, :, :]) ** 2).sum(-1).min(0)
-        d2ref = np.where(d2ref <= nd * nd, d2ref, np.inf)
-        mrow = np.isfinite(d2ref)
-        np.testing.assert_allclose(d2_j[ci][mrow], d2ref[mrow],
-                                   rtol=1e-5, atol=1e-4)
-
-
 def test_static_constraints_select_k_nearest_chunks():
     """_static_constraints picks the true k nearest distinct wall chunks
     per agent and builds the exact v.n >= -gap/tau half-planes."""
@@ -665,11 +576,10 @@ def test_static_constraints_select_k_nearest_chunks():
     px, py = jnp.asarray(pos[:, 0]), jnp.asarray(pos[:, 1])
     r = jnp.full((n,), 0.3, jnp.float32)
     exempt = jnp.zeros((n,), bool).at[3].set(True)
-    alive = jnp.ones((n,), bool)
     dt = 0.05
 
     ptx, pty, nx, ny, valid = _static_constraints(
-        px, py, r, exempt, alive, pset, p.max_statics, p.tau_static, dt,
+        px, py, r, exempt, pset, p.max_statics, p.tau_static, dt,
         p.neighbor_dist)
     assert ptx.shape == (n, p.max_statics)
     assert not np.asarray(valid)[3].any()          # exempt row: no planes

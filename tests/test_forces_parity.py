@@ -197,29 +197,3 @@ def test_obstacle_force_active_mask():
                                   obstacle_active=jnp.zeros((3,), bool))
     assert np.linalg.norm(np.asarray(f_on)) > 0.0
     assert np.all(np.asarray(f_off) == 0.0)
-
-
-def test_closest_point_pallas_matches_jnp():
-    """Fused TPU closest-point kernel == the jnp path (distances, chosen
-    points, has_point; first-occurrence argmin ties included)."""
-    import jax.numpy as jnp
-    from carla_social_force_model_tpu.env.pointsets import build_chunked_pointset
-    from carla_social_force_model_tpu.ops.geometry import closest_point_per_segment
-
-    rng = np.random.default_rng(3)
-    # ragged segments incl. a tiny one and duplicate points (argmin ties)
-    lists = [rng.uniform(-30, 30, (m, 2)) for m in (5, 200, 131, 17, 128)]
-    lists[1][50] = lists[1][49]  # exact duplicate -> tie
-    centers = np.stack([l.mean(0) for l in lists])
-    pset = build_chunked_pointset(lists, centers,
-                                  np.full(len(lists), 100.0), chunk_size=128)
-    pos = jnp.asarray(rng.uniform(-35, 35, (73, 2)), jnp.float32)
-
-    d_j, p_j, h_j = closest_point_per_segment(pos, pset, use_pallas=False)
-    d_p, p_p, h_p = closest_point_per_segment(pos, pset, use_pallas=True,
-                                              interpret=True)
-    np.testing.assert_array_equal(np.asarray(h_j), np.asarray(h_p))
-    np.testing.assert_allclose(np.asarray(d_p), np.asarray(d_j),
-                               rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(p_p), np.asarray(p_j),
-                               rtol=0, atol=1e-6)

@@ -138,7 +138,7 @@ def test_helbing_pallas_matches_jnp_and_oracle():
     np.testing.assert_allclose(np.asarray(got), want, rtol=2e-3, atol=2e-4)
 
 
-def test_helbing_pallas_cutoff_sorted_and_symmetric_ignored():
+def test_helbing_pallas_cutoff_sorted():
     from carla_social_force_model_tpu.ops.pallas_forces import (
         pedestrian_force_pallas, pedestrian_force_pallas_sorted)
     pos, vel, desired, rad, alive = _helbing_state(n=90, seed=11, extent=12.0)
@@ -160,11 +160,6 @@ def test_helbing_pallas_cutoff_sorted_and_symmetric_ignored():
         row_tile=16, col_tile=128, interpret=True)
     np.testing.assert_allclose(np.asarray(sorted_30), np.asarray(exact),
                                rtol=1e-4, atol=1e-5)
-    # symmetric is force-disabled for the non-antisymmetric law
-    sym = pedestrian_force_pallas(
-        pos, vel, rad, alive, p, law="helbing", desired=dxy, symmetric=True,
-        row_tile=16, col_tile=128, interpret=True)
-    np.testing.assert_array_equal(np.asarray(sym), np.asarray(exact))
 
 
 def test_helbing_pallas_desired_validation():

@@ -2,8 +2,8 @@
 
 Beyond-reference crowd heterogeneity: F_i = s_i * sum_j g_ij scales the
 interaction force each agent FEELS (row-wise, after the pairwise sum), so
-it is exact on every kernel path -- including the Newton's-third-law
-symmetric launch, which assembles the full unscaled per-row sum first.
+it is exact on every kernel path (the kernels return the full unscaled
+per-row sum first).
 """
 import dataclasses
 
@@ -66,14 +66,13 @@ def test_oblivious_agent_is_still_avoided():
                                   np.asarray(base[0])[1:])
 
 
-def test_scale_composes_with_pallas_cutoff_symmetric():
+def test_scale_composes_with_pallas_cutoff():
     scene, params, cfg, state = _bundle()
     scale = np.linspace(0.2, 1.8, scene.spawn.capacity).astype(np.float32)
     scene_s = _with_scale(scene, scale)
     cfg_p = dataclasses.replace(cfg, use_pallas=True, pallas_interpret=True,
                                 pallas_row_tile=8, pallas_col_tile=128,
-                                interaction_cutoff=30.0,
-                                pallas_symmetric=True)
+                                interaction_cutoff=30.0)
     run_j = make_rollout_fn(scene_s, params, cfg, 20)
     run_p = make_rollout_fn(scene_s, params, cfg_p, 20)
     _, rec_j = run_j(state)

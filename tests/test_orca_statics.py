@@ -1,13 +1,11 @@
-"""ORCA static-constraint feature feed (ops/pallas_statics.py +
-env/pointsets.build_static_features).
+"""ORCA static-constraint feature feed (ops/geometry.nearest_features_topk
++ env/pointsets.build_static_features).
 
 The feed supplies the k nearest distinct wall features per agent (exact
 closest points on Douglas-Peucker-simplified wall segments where sections
 simplify safely; 128-point-chunk closest points elsewhere) that
 ops/orca._static_constraints turns into hard half-planes.  Checked here:
 
-* the fused running-top-k Pallas kernels (interpret mode) match the jnp
-  (F, N)-materializing fallback exactly, for both feature kinds;
 * analytic distances are the true segment distances (numpy float64
   oracle), not the reference's 0.1 m sampling quantization;
 * a mixed split (simplifiable walls + an unsafe multi-piece section)
@@ -26,11 +24,10 @@ from carla_social_force_model_tpu.env.borders import (build_border_set,
 from carla_social_force_model_tpu.env.pointsets import (StaticFeatures,
                                                         build_static_features)
 from carla_social_force_model_tpu.models.params import OrcaParams
-from carla_social_force_model_tpu.ops.geometry import k_smallest_features
+from carla_social_force_model_tpu.ops.geometry import (k_smallest_features,
+                                                       nearest_features_topk)
 from carla_social_force_model_tpu.ops.orca import (_static_topk,
                                                    orca_velocities)
-from carla_social_force_model_tpu.ops.pallas_statics import (
-    nearest_features_topk)
 
 DT = 0.05
 
@@ -50,48 +47,12 @@ SEGS = [([-12.0, 2.0], [12.0, 2.0]), ([-12.0, -2.0], [12.0, -2.0]),
         ([12.0, -2.0], [12.0, 6.0]), ([-12.0, 2.0], [-12.0, 6.0])]
 
 
-def _assert_topk_equal(a, b, atol=1e-5):
-    d2a, wxa, wya = (np.asarray(v) for v in a)
-    d2b, wxb, wyb = (np.asarray(v) for v in b)
-    np.testing.assert_allclose(d2a, d2b, rtol=1e-6, atol=1e-6)
-    v = np.isfinite(d2a)
-    assert (v == np.isfinite(d2b)).all()
-    np.testing.assert_allclose(np.where(v, wxa, 0), np.where(v, wxb, 0),
-                               atol=atol)
-    np.testing.assert_allclose(np.where(v, wya, 0), np.where(v, wyb, 0),
-                               atol=atol)
-
-
-def test_segment_topk_kernel_matches_jnp():
-    feats = build_static_features(_pset(SEGS))
-    assert feats.seg is not None and feats.seg.num_features == 4
-    assert feats.rest is None
-    px, py = _crowd(700)
-    for k in (1, 3):
-        a = nearest_features_topk(px, py, feats.seg, k, 15.0,
-                                  use_pallas=False)
-        b = nearest_features_topk(px, py, feats.seg, k, 15.0,
-                                  use_pallas=True, interpret=True)
-        _assert_topk_equal(a, b)
-
-
-def test_chunk_topk_kernel_matches_jnp():
-    pset = _pset(SEGS)
-    px, py = _crowd(700, seed=3)
-    for k in (1, 3):
-        a = nearest_features_topk(px, py, pset, k, 15.0, use_pallas=False)
-        b = nearest_features_topk(px, py, pset, k, 15.0,
-                                  use_pallas=True, interpret=True)
-        _assert_topk_equal(a, b)
-
-
 def test_analytic_distances_are_exact():
     """The analytic feed returns true segment distances; the chunk feed is
     quantized by the 0.1 m sampling (distance to the nearest SAMPLE)."""
     feats = build_static_features(_pset(SEGS))
     px, py = _crowd(300, seed=5)
-    d2, _, _ = nearest_features_topk(px, py, feats.seg, 1, 1e3,
-                                     use_pallas=False)
+    d2, _, _ = nearest_features_topk(px, py, feats.seg, 1, 1e3)
 
     def exact(px_, py_):
         best = np.inf
@@ -122,7 +83,7 @@ def test_mixed_split_merges_both_parts():
 
     px, py = _crowd(400, lo=(-14, -5), hi=(14, 5), seed=7)
     k, nd = 3, 12.0
-    d2m, _, _ = _static_topk(px, py, feats, k, nd, None)
+    d2m, _, _ = _static_topk(px, py, feats, k, nd)
     d2m = np.asarray(d2m)
 
     # oracle: feature distances = 1 exact segment + per-chunk sample minima
@@ -157,8 +118,7 @@ def test_within_section_corner_gives_two_features():
 
     px = jnp.asarray([-1.0], jnp.float32)     # inside the corner elbow
     py = jnp.asarray([3.0], jnp.float32)
-    d2, wx, wy = nearest_features_topk(px, py, feats.seg, 2, 15.0,
-                                       use_pallas=False)
+    d2, wx, wy = nearest_features_topk(px, py, feats.seg, 2, 15.0)
     assert np.isfinite(np.asarray(d2)).all()
     # one closest point on each leg: (-1, 2) on the horizontal,
     # (0, 3) on the vertical

@@ -1,5 +1,7 @@
-"""Fused Pallas pedestrian-force kernel vs the jnp path (interpret mode)."""
+"""Fused pair-force kernel (Pallas, Triton route) vs the jnp path, in the
+Pallas interpreter on the CPU (tests/test_gpu_kernels.py runs it compiled)."""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -342,198 +344,138 @@ def test_hilbert_tiles_tighter_than_morton():
     assert mean_semiperimeter("hilbert") < mean_semiperimeter("morton")
 
 
-@pytest.mark.parametrize("cutoff", [None, 25.0])
-def test_in_kernel_ring_matches_single_device(cutoff):
-    """axis_comm='ring_kernel' (fused in-kernel RDMA ring,
-    ops/pallas_ring.py) == single-device kernel on the 8-device CPU mesh,
-    with and without the per-pair cutoff (multiple row AND column tiles
-    per shard; uneven alive counts)."""
-    import jax
-    from jax.sharding import Mesh
-    from jax.sharding import PartitionSpec as P
-
-    n = 8 * 48   # 6 row tiles of 8 per shard
-    pos = jnp.asarray(RNG.uniform(-60, 60, (n, 2)), jnp.float32)
+def test_kernel_padding_and_dead_tile():
+    """N not a multiple of either tile, and one whole row tile of dead
+    agents: padded and dead rows are exactly zero, live rows match jnp."""
+    n = 77                               # 3 row tiles of 32, 2 col tiles of 64
+    pos = jnp.asarray(RNG.uniform(-10, 10, (n, 2)), jnp.float32)
     vel = jnp.asarray(RNG.uniform(-2, 2, (n, 2)), jnp.float32)
     radius = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(RNG.uniform(size=n) < 0.8)
+    alive = jnp.asarray(RNG.uniform(size=n) < 0.9).at[32:64].set(False)
     p = MoussaidParams()
-    kw = dict(row_tile=8, col_tile=128, interpret=True, cutoff=cutoff)
-
-    want = pedestrian_force_pallas(pos, vel, radius, alive, p, **kw)
-
-    # interpret-mode remote DMA supports single-axis meshes only (the
-    # compiled Mosaic path takes multi-axis MESH device ids)
-    mesh = Mesh(np.asarray(jax.devices()[:8]), ("agents",))
-    fn = jax.shard_map(
-        lambda *a: pedestrian_force_pallas(
-            *a, p, axis_name="agents", axis_comm="ring_kernel", **kw),
-        mesh=mesh,
-        in_specs=(P("agents"), P("agents"), P("agents"), P("agents")),
-        out_specs=P("agents"), check_vma=False)
-    got = jax.jit(fn)(pos, vel, radius, alive)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-    assert np.all(np.asarray(got)[~np.asarray(alive)] == 0.0)
+    want = forces.pedestrian_force(pos, vel, radius, alive, p)
+    got = np.asarray(pedestrian_force_pallas(pos, vel, radius, alive, p,
+                                             row_tile=32, col_tile=64,
+                                             interpret=True))
+    assert got.shape == (n, 2)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5, atol=2e-5)
+    assert np.all(got[32:64] == 0.0)
+    assert np.all(got[~np.asarray(alive)] == 0.0)
 
 
-@pytest.mark.parametrize("law", ["powerlaw", "helbing"])
-def test_in_kernel_ring_other_families(law):
-    """round 4: the in-kernel RDMA ring rides the shared per-law tile
-    registry -- powerlaw / helbing under ring_kernel == the single-device
-    kernel (helbing's desired-direction row planes shard with the rows)."""
-    import jax
-    from jax.sharding import Mesh
-    from jax.sharding import PartitionSpec as P
-    from carla_social_force_model_tpu.models.params import (
-        PedRepulsiveParams, PowerLawParams)
+def test_cutoff_skip_exactly_at_tile_boundary():
+    """A column tile whose bounding box lies exactly at the cutoff from the
+    row tile is computed (gap^2 <= cutoff^2): pairs at distance == cutoff
+    count, as in the per-pair rule; a hair less cutoff drops them."""
+    import oracle
+    c = 4.0
+    ys = np.arange(8) * 0.125              # exact in f32
+    pos = np.concatenate([np.column_stack([np.zeros(8), ys]),
+                          np.column_stack([np.full(8, c), ys])])
+    vel = RNG.uniform(-1, 1, (16, 2))
+    p = MoussaidParams()
+    args = (jnp.asarray(pos, jnp.float32), jnp.asarray(vel, jnp.float32),
+            jnp.full((16,), 0.3, jnp.float32), jnp.ones((16,), bool), p)
+    kw = dict(row_tile=8, col_tile=8, interpret=True)
 
-    n = 8 * 32
-    pos = jnp.asarray(RNG.uniform(-40, 40, (n, 2)), jnp.float32)
-    vel = jnp.asarray(RNG.uniform(-2, 2, (n, 2)), jnp.float32)
+    def brute(cut):
+        want = np.zeros((16, 2))
+        for i in range(16):
+            for j in range(16):
+                diff = pos[j] - pos[i]
+                dist = np.linalg.norm(diff)
+                if j != i and dist <= cut:
+                    want[i] += oracle.moussaid_term(
+                        diff / dist, dist, vel[i] - vel[j], p.lambda_, p.A,
+                        p.gamma, p.n, p.n_prime, p.epsilon)
+        return want
+
+    at = np.asarray(pedestrian_force_pallas(*args, cutoff=c, **kw))
+    np.testing.assert_allclose(at, brute(c), rtol=2e-3, atol=1e-5)
+    below = np.asarray(pedestrian_force_pallas(*args, cutoff=c - 1e-3, **kw))
+    np.testing.assert_allclose(below, brute(c - 1e-3), rtol=2e-3, atol=1e-5)
+    assert not np.allclose(at, below)
+
+
+@pytest.mark.parametrize("n,tr,tc", [
+    (5, 32, 32), (33, 16, 16), (77, 32, 32), (100, 32, 64), (130, 16, 128)])
+def test_column_padding_matches_jnp(n, tr, tc):
+    """N not a multiple of the column tile: the padded columns (sentinels)
+    add nothing, every row matches jnp, padded rows are cut off."""
+    rng = np.random.default_rng(n)
+    pos = jnp.asarray(rng.uniform(-8, 8, (n, 2)), jnp.float32)
+    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
     radius = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(RNG.uniform(size=n) < 0.85)
-    kw = dict(row_tile=8, col_tile=128, interpret=True, cutoff=25.0)
-    if law == "powerlaw":
-        p, extra = PowerLawParams(), ()
-    else:
-        p = PedRepulsiveParams()
-        gxy = jnp.asarray(RNG.uniform(-1, 1, (n, 2)), jnp.float32)
-        nrm = jnp.linalg.norm(gxy, axis=-1, keepdims=True) + 1e-9
-        gxy = gxy / nrm
-        extra = (gxy[:, 0], gxy[:, 1])
-
-    want = pedestrian_force_pallas(pos, vel, radius, alive, p, law=law,
-                                   desired=extra or None, **kw)
-    mesh = Mesh(np.asarray(jax.devices()[:8]), ("agents",))
-    fn = jax.shard_map(
-        lambda pos_, vel_, rad_, al_, *d: pedestrian_force_pallas(
-            pos_, vel_, rad_, al_, p, axis_name="agents",
-            axis_comm="ring_kernel", law=law,
-            desired=(d if d else None), **kw),
-        mesh=mesh, in_specs=(P("agents"),) * (4 + len(extra)),
-        out_specs=P("agents"), check_vma=False)
-    got = jax.jit(fn)(pos, vel, radius, alive, *extra)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-    assert np.all(np.asarray(got)[~np.asarray(alive)] == 0.0)
+    alive = jnp.asarray(rng.uniform(size=n) < 0.9)
+    p = MoussaidParams()
+    got = np.asarray(pedestrian_force_pallas(pos, vel, radius, alive, p,
+                                             row_tile=tr, col_tile=tc,
+                                             interpret=True))
+    assert got.shape == (n, 2)
+    want = np.asarray(forces.pedestrian_force(pos, vel, radius, alive, p))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-def test_in_kernel_ring_matches_jnp_ring_sorted():
-    """Morton-sorted cutoff path with the in-kernel ring == the jnp
-    ppermute ring (both under shard_map)."""
-    import jax
-    from jax.sharding import Mesh
-    from jax.sharding import PartitionSpec as P
-    from carla_social_force_model_tpu.ops.pallas_forces import (
-        pedestrian_force_pallas_sorted)
+def test_tiles_must_be_powers_of_two():
+    pos = jnp.zeros((4, 2), jnp.float32)
+    with pytest.raises(ValueError, match="powers of two"):
+        pedestrian_force_pallas(pos, pos, jnp.full((4,), 0.3),
+                                jnp.ones((4,), bool), MoussaidParams(),
+                                row_tile=24, col_tile=64, interpret=True)
 
-    n = 8 * 40
-    pos = jnp.asarray(RNG.uniform(-80, 80, (n, 2)), jnp.float32)
-    vel = jnp.asarray(RNG.uniform(-2, 2, (n, 2)), jnp.float32)
+
+def test_cutoff_survivor_list_matches_in_loop_skip(monkeypatch):
+    """The compacted cutoff launch (per-row-tile survivor lists) equals the
+    in-loop bbox skip; a list too narrow for the geometry falls back to the
+    in-loop skip and stays exact."""
+    from carla_social_force_model_tpu.ops import pallas_forces as PF
+    rng = np.random.default_rng(4)
+    n = 1500
+    pos = jnp.asarray(rng.uniform(-200, 200, (n, 2)), jnp.float32)
+    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
     radius = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(RNG.uniform(size=n) < 0.9)
+    alive = jnp.asarray(rng.uniform(size=n) < 0.9)
     p = MoussaidParams()
-    mesh = Mesh(np.asarray(jax.devices()[:8]), ("agents",))
+    kw = dict(cutoff=30.0, row_tile=32, col_tile=16, interpret=True)
 
-    def run(comm):
-        fn = jax.shard_map(
-            lambda *a: pedestrian_force_pallas_sorted(
-                *a, p, cutoff=30.0, row_tile=8, col_tile=128,
-                interpret=True, axis_name="agents", axis_comm=comm),
-            mesh=mesh,
-            in_specs=(P("agents"),) * 4, out_specs=P("agents"),
-            check_vma=False)
-        return np.asarray(jax.jit(fn)(pos, vel, radius, alive))
+    def run(width):
+        monkeypatch.setattr(PF, "_MAX_SURV", width)
+        return np.asarray(PF.pedestrian_force_pallas_sorted(
+            pos, vel, radius, alive, p, **kw))
 
-    np.testing.assert_allclose(run("ring_kernel"), run("ring"),
-                               rtol=2e-5, atol=2e-5)
+    def plan(width):
+        monkeypatch.setattr(PF, "_MAX_SURV", width)
+        counts, w = PF.survivor_counts(pos, alive, 30.0, row_tile=32,
+                                       col_tile=16)
+        return int(np.asarray(counts).max()), w
 
+    # the list width that fits this geometry (and the one that does not)
+    assert plan(10**6)[1] == 0                       # never engages
+    most, w = plan(32)
+    assert w == 32 and 2 < most <= w                 # engages and fits
+    most, w = plan(2)
+    assert w == 2 and most > w                       # engages, overflows
 
-def _clustered_cloud(n=600, n_clusters=3, spread=200.0, seed=21):
-    """Spatially clustered agents: after the locality sort, each row tile's
-    30 m neighborhood covers only its own cluster's column tiles, so the
-    compacted grid engages with a small survivor bound."""
-    rng = np.random.default_rng(seed)
-    centers = np.arange(n_clusters) * spread
-    cx = centers[rng.integers(0, n_clusters, n)]
-    pos = np.column_stack([cx + rng.uniform(-8, 8, n),
-                           rng.uniform(-8, 8, n)])
-    return (jnp.asarray(pos, jnp.float32),
-            jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32),
-            jnp.full((n,), 0.3, jnp.float32),
-            jnp.asarray(rng.uniform(size=n) < 0.9))
+    skip = run(10**6)
+    listed = run(32)
+    np.testing.assert_allclose(listed, skip, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(run(2), skip)      # overflow -> skip
+    assert np.abs(skip).max() > 0.0
 
 
-def test_pairwise_compact_matches_dense_bitwise():
-    """The compacted pairwise grid equals the dense cutoff grid BITWISE
-    (same ascending accumulation order over the same surviving tiles), and
-    the survivor table actually fits (the compact branch, not the cond
-    fallback, produced the result)."""
-    from carla_social_force_model_tpu.ops.pallas_forces import (
-        _bbox_hits, _bboxes, _stage, _round_up, pedestrian_force_pallas_sorted)
-    from carla_social_force_model_tpu.ops.spatial import morton_sort, surv_table
-
-    pos, vel, radius, alive = _clustered_cloud(n=1280, n_clusters=5,
-                                               spread=300.0)
-    p = MoussaidParams()
-
-    # replicate the kernel's staging (hilbert sort, sentinel padding) to
-    # size max_surv at the geometry's TRUE per-row survivor bound: the
-    # compact branch -- not the cond fallback -- then provably produced
-    # the result, and the gate (n_col_tiles > max_surv) provably engaged
-    from carla_social_force_model_tpu.ops.vecmath import split_xy
-    px, py = split_xy(pos)
-    (spx, spy, salive), _ = morton_sort((px, py), alive, (px, py, alive),
-                                        order="hilbert")
-    n = int(px.shape[0])
-    n_rows = _round_up(n, 8)
-    n_cols = _round_up(n, 128)
-    row_1d = _stage(spx, spy, spx * 0, spy * 0, radius, salive, n_rows)
-    col_1d = _stage(spx, spy, spx * 0, spy * 0, radius, salive, n_cols)
-    hits = _bbox_hits(_bboxes(row_1d, salive, n, 8),
-                      _bboxes(col_1d, salive, n, 128), 30.0)
-    ms = int(hits.sum(axis=1).max())
-    assert ms < int(hits.shape[1]), "gate needs n_col_tiles > max_surv"
-    _, fits = surv_table(hits, ms)
-    assert bool(fits)
-
-    kw = dict(cutoff=30.0, row_tile=8, col_tile=128, interpret=True)
-    dense = pedestrian_force_pallas_sorted(pos, vel, radius, alive, p, **kw)
-    comp = pedestrian_force_pallas_sorted(pos, vel, radius, alive, p,
-                                          compact=True, max_surv=ms, **kw)
-    np.testing.assert_array_equal(np.asarray(comp), np.asarray(dense))
-    assert np.abs(np.asarray(dense)).max() > 0.0
-
-
-def test_pairwise_compact_overflow_falls_back_dense():
-    """max_surv too small for the geometry -> the lax.cond picks the dense
-    grid and the result is still exact."""
-    from carla_social_force_model_tpu.ops.pallas_forces import (
-        pedestrian_force_pallas_sorted)
-    pos, vel, radius, alive = _clustered_cloud(n=400, n_clusters=1)
-    p = MoussaidParams()
-    kw = dict(cutoff=30.0, row_tile=8, col_tile=128, interpret=True)
-    dense = pedestrian_force_pallas_sorted(pos, vel, radius, alive, p, **kw)
-    comp = pedestrian_force_pallas_sorted(pos, vel, radius, alive, p,
-                                          compact=True, max_surv=1, **kw)
-    np.testing.assert_array_equal(np.asarray(comp), np.asarray(dense))
-
-
-def test_pairwise_compact_under_sharding_gather():
-    """Compacted grid per device (rows sharded, columns gathered) matches
-    the single-device cutoff kernel.
+@pytest.mark.parametrize("max_surv,fits", [(8, True), (2, False)])
+def test_pairwise_compact_under_sharding_gather(monkeypatch, max_surv, fits):
+    """Survivor lists per device (rows sharded, columns gathered) match the
+    single-device in-loop skip; a list too narrow for the geometry
+    overflows to the in-loop skip.
 
     One spatial cluster per device slot-range: the gathered column blocks
-    (each device's locally sorted shard) then tile into cluster-tight
-    bboxes, so each row tile survives against ~1 of the 8 column tiles and
-    the max_surv=2 table fits -- the compact branch, not the fallback, is
-    exercised."""
-    import jax
+    (each device's locally sorted shard) tile into cluster-tight bboxes, so
+    each row tile survives against its own cluster's 4 of the 32 column
+    tiles -- a width of 8 fits, a width of 2 overflows."""
     from jax.sharding import PartitionSpec as P
+    from carla_social_force_model_tpu.ops import pallas_forces as PF
     from carla_social_force_model_tpu.parallel.mesh import make_mesh
-    from carla_social_force_model_tpu.ops.pallas_forces import (
-        pedestrian_force_pallas_sorted)
 
     rng = np.random.default_rng(23)
     n = 8 * 128
@@ -544,267 +486,32 @@ def test_pairwise_compact_under_sharding_gather():
     radius = jnp.full((n,), 0.3, jnp.float32)
     alive = jnp.asarray(rng.uniform(size=n) < 0.9)
     p = MoussaidParams()
-    want = pedestrian_force_pallas_sorted(
-        pos, vel, radius, alive, p, cutoff=30.0, row_tile=8, col_tile=128,
-        interpret=True)
+    kw = dict(cutoff=30.0, row_tile=8, col_tile=32, interpret=True)
+    monkeypatch.setattr(PF, "_MAX_SURV", 10**6)
+    want = np.asarray(PF.pedestrian_force_pallas_sorted(
+        pos, vel, radius, alive, p, **kw))          # in-loop skip
+
+    monkeypatch.setattr(PF, "_MAX_SURV", max_surv)
     mesh = make_mesh(n_agent_shards=8)
+    width = []
+
+    def counts(pos, alive):
+        c, w = PF.survivor_counts(pos, alive, 30.0, row_tile=8, col_tile=32,
+                                  axis_name="agents")
+        width.append(w)
+        return c
+
+    cnt = np.asarray(jax.jit(jax.shard_map(
+        counts, mesh=mesh, in_specs=(P("agents"),) * 2,
+        out_specs=P("agents"), check_vma=False))(pos, alive))
+    assert width == [max_surv] and cnt.max() == 4   # dead tiles: 0
+    assert bool((cnt <= max_surv).all()) == fits
+
     fn = jax.shard_map(
-        lambda *a: pedestrian_force_pallas_sorted(
-            *a, p, cutoff=30.0, row_tile=8, col_tile=128, interpret=True,
-            axis_name="agents", axis_comm="gather", compact=True,
-            max_surv=2),
+        lambda *a: PF.pedestrian_force_pallas_sorted(
+            *a, p, axis_name="agents", axis_comm="gather", **kw),
         mesh=mesh, in_specs=(P("agents"),) * 4, out_specs=P("agents"),
         check_vma=False)
-    got = jax.jit(fn)(pos, vel, radius, alive)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-
-
-def test_alu_exp_recip_match_hardware_paths():
-    """The ALU transcendental paths (alu_exp: exp2-by-bits, alu_recip:
-    bit-seed Newton reciprocal -- EUP-port offload knobs) match the
-    hardware-exp kernel to f32-rounding scale, including sentinel masking
-    (dead agents stay exactly zero) and the radius/cutoff variants."""
-    from carla_social_force_model_tpu.ops.pallas_forces import (_exp_alu,
-                                                                _recip_alu)
-    # unit behavior at the edges the kernel relies on
-    a = jnp.asarray([0.0, -np.inf, -200.0, -87.4, -5.0, 2.5], jnp.float32)
-    out = np.asarray(_exp_alu(a))
-    assert out[0] == 1.0 and out[1] == 0.0 and out[2] == 0.0 and out[3] == 0.0
-    np.testing.assert_allclose(out[4:], np.exp([-5.0, 2.5]), rtol=1e-6)
-    x = jnp.asarray(np.logspace(-30, 30, 101), jnp.float32)
-    np.testing.assert_allclose(np.asarray(_recip_alu(x)) * np.asarray(x),
-                               1.0, rtol=2e-5)
-
-    n = 260
-    rng = np.random.default_rng(7)
-    pos = jnp.asarray(rng.uniform(-20, 20, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    radius = jnp.asarray(rng.uniform(0.2, 0.4, (n,)), jnp.float32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.85)
-    p = MoussaidParams()
-    for kw in (dict(), dict(use_ped_radius=True),
-               dict(cutoff=15.0), dict(use_ped_radius=True, cutoff=15.0)):
-        base = pedestrian_force_pallas(pos, vel, radius, alive, p,
-                                       row_tile=8, col_tile=128,
-                                       interpret=True, **kw)
-        got = pedestrian_force_pallas(pos, vel, radius, alive, p,
-                                      row_tile=8, col_tile=128,
-                                      interpret=True, alu_exp=True,
-                                      alu_recip=True, **kw)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                                   rtol=2e-5, atol=1e-4)
-        assert np.all(np.asarray(got)[~np.asarray(alive)] == 0.0)
-
-
-@pytest.mark.parametrize("kw", [
-    dict(), dict(use_ped_radius=True), dict(cutoff=15.0),
-    dict(cutoff=15.0, compact=True, max_surv=4)])
-def test_symmetric_kernel_matches_dense(kw):
-    """Newton's-third-law launch (symmetric=True): each unordered pair
-    computed once, mirrored as -f to its column -- must equal the dense
-    kernel up to f32 summation order across all kernel variants.  n=1000
-    exercises uneven row/col padding (1056 rows vs 1024 cols at 8/128
-    tiles scaled down: 1000 -> 1000/8 vs 1000/128 tiling)."""
-    kw = dict(kw)
-    upr = kw.pop("use_ped_radius", False)
-    rng = np.random.default_rng(23)
-    for n in (130, 1000):
-        pos = jnp.asarray(rng.uniform(0, 40, (n, 2)), jnp.float32)
-        vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-        rad = jnp.asarray(rng.uniform(0.2, 0.4, n), jnp.float32)
-        alive = jnp.asarray(rng.uniform(size=n) < 0.9)
-        p = MoussaidParams()
-        base = pedestrian_force_pallas(pos, vel, rad, alive, p,
-                                       use_ped_radius=upr, row_tile=8,
-                                       col_tile=128, interpret=True, **kw)
-        got = pedestrian_force_pallas(pos, vel, rad, alive, p,
-                                      use_ped_radius=upr, row_tile=8,
-                                      col_tile=128, interpret=True,
-                                      symmetric=True, **kw)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                                   rtol=2e-4, atol=2e-4)
-        assert np.all(np.asarray(got)[~np.asarray(alive)] == 0.0)
-
-
-def test_symmetric_kernel_under_vmap_sweep():
-    """Parameter sweeps vmap over MoussaidParams leaves; the symmetric
-    launch's static triangle table must stay constant under the batch."""
-    import jax
-    rng = np.random.default_rng(5)
-    n = 200
-    pos = jnp.asarray(rng.uniform(0, 30, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    rad = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.ones((n,), bool)
-    As = jnp.asarray([2.0, 4.5, 7.0], jnp.float32)
-
-    def f(a, sym):
-        import dataclasses
-        p = dataclasses.replace(MoussaidParams(), A=a)
-        return pedestrian_force_pallas(pos, vel, rad, alive, p, row_tile=8,
-                                       col_tile=128, interpret=True,
-                                       symmetric=sym)
-    base = jax.vmap(lambda a: f(a, False))(As)
-    got = jax.vmap(lambda a: f(a, True))(As)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(base),
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_symmetric_ignored_under_sharding():
-    """symmetric=True under an axis_name falls back to the non-symmetric
-    comm paths (the mirrored row lives on another device)."""
-    import jax
-    from jax.sharding import Mesh, PartitionSpec as P
-    n_dev = min(4, jax.device_count())
-    n = 64 * n_dev
-    rng = np.random.default_rng(9)
-    pos = jnp.asarray(rng.uniform(-30, 30, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    rad = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.9)
-    p = MoussaidParams()
-    kw = dict(row_tile=8, col_tile=128, interpret=True)
-    want = pedestrian_force_pallas(pos, vel, rad, alive, p, **kw)
-    mesh = Mesh(np.asarray(jax.devices()[:n_dev]), ("agents",))
-    fn = jax.shard_map(
-        lambda *a: pedestrian_force_pallas(
-            *a, p, axis_name="agents", symmetric=True, **kw),
-        mesh=mesh, in_specs=(P("agents"),) * 4, out_specs=P("agents"),
-        check_vma=False)
-    got = jax.jit(fn)(pos, vel, rad, alive)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_symmetric_table_bound_fallbacks(monkeypatch):
-    """Above the static-triangle-table bound (N=1M would bake a 40 MB
-    constant -- measured remote-compile failure) the dense launches drop
-    to the non-symmetric kernel and the compacted launch's overflow
-    fallback runs the plain dense grid wrapped in the sym signature."""
-    from carla_social_force_model_tpu.ops import pallas_forces as PF
-    rng = np.random.default_rng(31)
-    n = 400
-    pos = jnp.asarray(rng.uniform(0, 40, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    rad = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.9)
-    p = MoussaidParams()
-    kw = dict(row_tile=8, col_tile=128, interpret=True)
-    monkeypatch.setattr(PF, "_TRI_TABLE_MAX", 1)
-    base = PF.pedestrian_force_pallas(pos, vel, rad, alive, p, **kw)
-    got = PF.pedestrian_force_pallas(pos, vel, rad, alive, p,
-                                     symmetric=True, **kw)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(base))
-    b_cut = PF.pedestrian_force_pallas(pos, vel, rad, alive, p,
-                                       cutoff=15.0, **kw)
-    g_cut = PF.pedestrian_force_pallas(pos, vel, rad, alive, p, cutoff=15.0,
-                                       compact=True, max_surv=1,
-                                       symmetric=True, **kw)
-    np.testing.assert_array_equal(np.asarray(g_cut), np.asarray(b_cut))
-
-
-@pytest.mark.parametrize("n_shards,cutoff,use_radius", [
-    (8, None, False), (8, 15.0, False), (3, None, False), (2, 20.0, True)])
-def test_symmetric_half_ring_matches_single_device(n_shards, cutoff,
-                                                   use_radius):
-    """Newton's-third-law HALF-ring (axis_comm='ring' + symmetric): the
-    diagonal shard pair runs the local triangle launch, floor(D/2) ring
-    rotations compute full blocks once (even-D opposite pairs tie-broken by
-    device id), and the mirrored -f sums ride an accumulator home -- must
-    equal the single-device kernel on even, odd, and two-device rings,
-    with a cutoff and with radii."""
-    import jax
-    from jax.sharding import PartitionSpec as P
-    from carla_social_force_model_tpu.parallel.mesh import make_mesh
-
-    n = 24 * n_shards
-    rng = np.random.default_rng(5 + n_shards)
-    pos = jnp.asarray(rng.uniform(-25, 25, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    radius = jnp.asarray(rng.uniform(0.2, 0.4, (n,)), jnp.float32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.85)
-    p = MoussaidParams()
-    # small col tiles so each ring block spans multiple column tiles (the
-    # triangle table and the column accumulator cross tile boundaries)
-    kw = dict(row_tile=8, col_tile=16, interpret=True, cutoff=cutoff,
-              use_ped_radius=use_radius)
-    want = pedestrian_force_pallas(pos, vel, radius, alive, p, **kw)
-
-    mesh = make_mesh(n_agent_shards=n_shards)
-    fn = jax.shard_map(
-        lambda *a: pedestrian_force_pallas(
-            *a, p, axis_name="agents", axis_comm="ring", symmetric=True,
-            **kw),
-        mesh=mesh, in_specs=(P("agents"),) * 4, out_specs=P("agents"),
-        check_vma=False)
-    got = jax.jit(fn)(pos, vel, radius, alive)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-4, atol=3e-5)
-    assert np.all(np.asarray(got)[~np.asarray(alive)] == 0.0)
-
-
-def test_symmetric_half_ring_sorted_cutoff():
-    """The half-ring composes with the per-device locality sort (the
-    production multi-chip cutoff configuration): sorted + sharded +
-    symmetric == single-device sorted cutoff kernel."""
-    import jax
-    from jax.sharding import PartitionSpec as P
-    from carla_social_force_model_tpu.parallel.mesh import make_mesh
-    from carla_social_force_model_tpu.ops.pallas_forces import (
-        pedestrian_force_pallas_sorted)
-
-    n, cutoff = 96, 18.0
-    rng = np.random.default_rng(17)
-    pos = jnp.asarray(rng.uniform(-40, 40, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    radius = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.9)
-    p = MoussaidParams()
-    kw = dict(row_tile=8, col_tile=16, interpret=True)
-
-    want = pedestrian_force_pallas_sorted(pos, vel, radius, alive, p,
-                                          cutoff=cutoff, **kw)
-    mesh = make_mesh(n_agent_shards=8)
-    fn = jax.shard_map(
-        lambda *a: pedestrian_force_pallas_sorted(
-            *a, p, cutoff=cutoff, axis_name="agents", axis_comm="ring",
-            symmetric=True, **kw),
-        mesh=mesh, in_specs=(P("agents"),) * 4, out_specs=P("agents"),
-        check_vma=False)
-    got = jax.jit(fn)(pos, vel, radius, alive)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-4, atol=3e-5)
-
-
-def test_symmetric_half_ring_table_bound_degrades_gracefully(monkeypatch):
-    """When the diagonal triangle table exceeds the SMEM bound, the
-    half-ring keeps its table-free sym_dense off-diagonal rotations and
-    only the diagonal degrades to a plain non-symmetric block -- results
-    still equal the single-device kernel."""
-    import jax
-    from jax.sharding import PartitionSpec as P
-    from carla_social_force_model_tpu.ops import pallas_forces as pf
-    from carla_social_force_model_tpu.parallel.mesh import make_mesh
-
-    n = 24 * 8
-    rng = np.random.default_rng(11)
-    pos = jnp.asarray(rng.uniform(-25, 25, (n, 2)), jnp.float32)
-    vel = jnp.asarray(rng.uniform(-2, 2, (n, 2)), jnp.float32)
-    radius = jnp.full((n,), 0.3, jnp.float32)
-    alive = jnp.asarray(rng.uniform(size=n) < 0.9)
-    p = MoussaidParams()
-    kw = dict(row_tile=8, col_tile=16, interpret=True)
-    want = pedestrian_force_pallas(pos, vel, radius, alive, p, **kw)
-
-    monkeypatch.setattr(pf, "_TRI_TABLE_MAX", 1)
-    mesh = make_mesh(n_agent_shards=8)
-    fn = jax.shard_map(
-        lambda *a: pedestrian_force_pallas(
-            *a, p, axis_name="agents", axis_comm="ring", symmetric=True,
-            **kw),
-        mesh=mesh, in_specs=(P("agents"),) * 4, out_specs=P("agents"),
-        check_vma=False)
-    got = jax.jit(fn)(pos, vel, radius, alive)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-4, atol=3e-5)
+    got = np.asarray(jax.jit(fn)(pos, vel, radius, alive))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    assert np.abs(want).max() > 0.0

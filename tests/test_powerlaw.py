@@ -87,34 +87,33 @@ def test_jnp_row_blocked_matches():
                                rtol=2e-3, atol=2e-5)
 
 
-@pytest.mark.parametrize("symmetric", [False, True])
-def test_pallas_matches_jnp(symmetric):
+@pytest.mark.parametrize("tiles", [(8, 16), (32, 64)])
+def test_pallas_matches_jnp(tiles):
     pos, vel, rad, alive = _crowd(n=90)
     p = PowerLawParams()
     want = forces.powerlaw_force(pos, vel, rad, alive, p)
     got = pedestrian_force_pallas(pos, vel, rad, alive, p, law="powerlaw",
-                                  row_tile=8, col_tile=16, interpret=True,
-                                  symmetric=symmetric)
+                                  row_tile=tiles[0], col_tile=tiles[1],
+                                  interpret=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=3e-4, atol=2e-5)
 
 
-def test_pallas_sorted_cutoff_compact():
-    """Cutoff + Hilbert sort + compacted grid compose with the power law;
-    a cutoff >= tau_max * v_rel_max + R keeps it exact."""
+def test_pallas_sorted_cutoff():
+    """Cutoff + Hilbert sort compose with the power law; a cutoff >=
+    tau_max * v_rel_max + R keeps it exact."""
     pos, vel, rad, alive = _crowd(n=128, extent=40.0)
     p = PowerLawParams(tau_max=5.0)
     want = forces.powerlaw_force(pos, vel, rad, alive, p)
     # v_rel <= 4 m/s, tau_max 5 s -> any colliding pair is within ~21 m
     got = pedestrian_force_pallas_sorted(
         pos, vel, rad, alive, p, cutoff=25.0, law="powerlaw",
-        row_tile=8, col_tile=16, interpret=True, compact=True, max_surv=4,
-        symmetric=True)
+        row_tile=8, col_tile=16, interpret=True)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=3e-4, atol=2e-5)
 
 
-def test_half_ring_sharded_matches_single():
+def test_ring_sharded_matches_single():
     from jax.sharding import PartitionSpec as P
     from carla_social_force_model_tpu.parallel.mesh import make_mesh
     pos, vel, rad, alive = _crowd(n=24 * 8)
@@ -124,8 +123,7 @@ def test_half_ring_sharded_matches_single():
     mesh = make_mesh(n_agent_shards=8)
     fn = jax.shard_map(
         lambda *a: pedestrian_force_pallas(
-            *a, p, axis_name="agents", axis_comm="ring", symmetric=True,
-            **kw),
+            *a, p, axis_name="agents", axis_comm="ring", **kw),
         mesh=mesh, in_specs=(P("agents"),) * 4, out_specs=P("agents"),
         check_vma=False)
     got = jax.jit(fn)(pos, vel, rad, alive)

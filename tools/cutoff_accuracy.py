@@ -8,7 +8,7 @@ exp(-d/B) with B of a few meters) and demonstrates the f32-exact regime
 (cutoff >= 110*gamma*(2*lambda*v_max+1), ops/pallas_forces.py) at zero
 divergence.  Results table lives in BENCH.md.
 
-Run on TPU: python tools/cutoff_accuracy.py [N] [duration_s]
+Run on the card: python tools/cutoff_accuracy.py [N] [duration_s]
 """
 import os
 import sys

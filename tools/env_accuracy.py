@@ -7,7 +7,8 @@ sampled path CONVERGES to the analytic one as the sampling refines --
 i.e. the analytic tier is the zero-quantization limit of the reference's
 own discretization, not an approximation of it.
 
-Run on TPU (or CPU with --interpret): python tools/env_accuracy.py
+Run on the card (or the CPU, where the kernels run in the Pallas
+interpreter): python tools/env_accuracy.py
 Results land in BENCH.md's analytic-tier section.
 """
 import os
@@ -31,7 +32,8 @@ def main():
     from carla_social_force_model_tpu.ops.pallas_env import (
         fused_environment_terms)
 
-    interpret = jax.default_backend() != "tpu"
+    from carla_social_force_model_tpu.ops.backend import kernels_available
+    interpret = not kernels_available()
     n = int(os.environ.get("ACC_N", 10_000))
     rng = np.random.default_rng(7)
 

@@ -12,7 +12,7 @@ overlapping road footprints made that impossible; see make_town2_assets.py.)
   (env/borders.py semantics via bridge/extract.py), the reference's
   sidewalk .npz cache format (obstacles.py:27-64)
 
-Run: python tools/make_crosstown_assets.py   (pure numpy; no TPU needed)
+Run: python tools/make_crosstown_assets.py   (pure numpy; no accelerator needed)
 """
 import os
 import sys

@@ -13,7 +13,7 @@ produces that capture from the deterministic multi-road fake town fixture
   semantics via bridge/extract.py), the reference's sidewalk .npz cache
   format
 
-Run: python tools/make_town2_assets.py   (pure numpy; no TPU needed)
+Run: python tools/make_town2_assets.py   (pure numpy; no accelerator needed)
 """
 import os
 import sys
